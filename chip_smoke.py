@@ -7,17 +7,25 @@ Phases, in order; any failure exits nonzero before the last line:
 
 1. environment: the card's name and power limit, torch and CUDA versions,
    whether ``zstandard`` imports, and the native host runtime (required);
-2. build: nvcc compiles the port's CUDA kernels from ``ops/csrc``;
-3. kernels: K1 (anchor_fps) and K2 (compact_starts3) against their plain
-   PyTorch versions on the card, bit for bit, at the main path's shapes for
-   a 64 MiB and a 256 MiB chunk (stride 8), with both times (median of 5,
-   CUDA events);
-4. the slice: ``lrzip_next_tpu_torch.compress`` of a 64 MiB long-range
-   corpus (lzma) and of a 16 MiB word-soup text with holes (gzip, which
-   takes the walk fallback), each decoded and compared; the kernels'
-   launch counters are zeroed just before the 64 MiB run and must rise;
-5. card equals CPU: an 8 MiB mixed input compressed with device="cuda"
-   and with device="cpu" gives the same archive bytes.
+2. build: nvcc compiles the port's CUDA kernels from ``ops/csrc``, one
+   process per source, all started together;
+3. kernels: every kernel against its plain PyTorch version on the card,
+   bit for bit, with both times (median of 5, CUDA events): K1
+   (anchor_fps) and K2 (compact_starts3) at the matcher's shapes for a
+   64 MiB and a 256 MiB chunk (stride 8); K3 (pack_stream), K4
+   (joint_histogram), K5 (encode_scan) and K6 (pack_plane) at the shapes
+   of the 64 MiB chunk's literal stream, made from its real matcher
+   tokens (level 7, ctx_bits 6; K4 and K5 also at ctx_bits 8, untimed);
+4. the slice: ``lrzip_next_tpu_torch.compress`` of the 64 MiB long-range
+   corpus with ``method="rans"`` (the device literal encode: K1-K6), with
+   lzma (host literal coder: K1, K2), and of a 16 MiB word-soup text with
+   holes (gzip, which takes the walk fallback), each decoded by the
+   shared ``decompress`` and compared; the launch counters are zeroed
+   just before each 64 MiB run and must rise for every kernel it uses;
+5. card equals CPU: an 8 MiB mixed input (gzip) and a 4 MiB skewed input
+   whose literals make one rANS block of 4096 lanes (rans), each
+   compressed with device="cuda" and with device="cpu", give the same
+   archive bytes.
 
 The line before the last is a JSON object of the kernels, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -194,9 +202,93 @@ def check_k2(data: np.ndarray, label: str) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
+def skewed_symbols(total: int) -> np.ndarray:
+    """Seeded i.i.d. bytes of a Zipf-like law: no long repeats, so every
+    byte is a literal, and rANS-compressible."""
+    rng = np.random.default_rng(11)
+    p = 1.0 / np.arange(1, 257) ** 1.2
+    return rng.choice(256, total, p=p / p.sum()).astype(np.uint8)
+
+
+def timed_pair(name: str, label: str, kernel, plain, same) -> dict:
+    """Run the kernel and its plain version once each, require ``same`` of
+    their results (0 = equal), then time both (median of 5)."""
+    got = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    torch.cuda.synchronize()
+    err = same(got, ref)
+    require(err == 0, f"{name} differs from its plain version at {label}")
+    ms = cuda_ms(kernel)
+    plain_ms = cuda_ms(plain)
+    log(f"{name} {label}: bit-equal; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "out": got}
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    if a.shape != b.shape:
+        return 1 << 62
+    if a.numel() == 0:
+        return 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def check_literal_kernels(corpus64: np.ndarray) -> dict:
+    """K3-K6 at the shapes of the 64 MiB chunk's literal stream."""
+    from lrzip_next_tpu_torch.models import device_path as DP
+    from lrzip_next_tpu_torch.ops import matcher, rans
+    from lrzip_next_tpu_torch.ops import rans_kernels as RK
+    from lrzip_next_tpu_torch.ops import streampack as SP
+    job = matcher.MatchJob(corpus64, STRIDE, torch.device("cuda"))
+    kinds, lengths, _ = job.collect()
+    ls, le, n_lit = DP.literal_spans(kinds, lengths)
+    mask = DP.literal_mask(job.dev.shape[0], ls, le, job.dev.device)
+    k, t_len, srate = rans.plan(n_lit)
+    label = (f"n_lit={n_lit} in {len(ls)} spans, K={k} T={t_len} "
+             f"srate={srate}")
+    log(f"literal stream of the 64 MiB chunk: {label}")
+
+    def same_pack(a, b):
+        return max(max_err(a[1], b[1]), max_err(a[0], b[0]))
+
+    res = {"k3": timed_pair(
+        "K3 pack_stream", "64 MiB chunk",
+        lambda: SP.pack_stream(job.dev, mask, k * t_len),
+        lambda: SP.pack_stream_reference(job.dev, mask, k * t_len),
+        same_pack)}
+    lit = res["k3"]["out"][0]
+    require(int(res["k3"]["out"][1]) == n_lit, "K3 count != n_lit")
+    for ctx_bits in (6, 8):
+        hist = timed_pair(
+            f"K4 joint_histogram ctx_bits {ctx_bits}", label,
+            lambda: RK.joint_histogram(lit, n_lit, ctx_bits, srate, k),
+            lambda: RK.joint_histogram_reference(lit, n_lit, ctx_bits,
+                                                 srate, k), max_err)
+        freqs = rans.quantize_freqs(hist["out"])
+        enc = timed_pair(
+            f"K5 encode_scan ctx_bits {ctx_bits}", label,
+            lambda: RK.encode_scan(lit, n_lit, freqs, ctx_bits, k),
+            lambda: RK.encode_scan_reference(lit, n_lit, freqs, ctx_bits,
+                                             k),
+            lambda a, b: max(max_err(a[0], b[0]), max_err(a[1], b[1])))
+        if ctx_bits == 6:   # level 7, the main path's
+            res["k4"], res["k5"] = hist, enc
+    plane = res["k5"]["out"][1]
+    res["k6"] = timed_pair(
+        "K6 pack_plane", label,
+        lambda: SP.pack_plane(plane, k * t_len),
+        lambda: SP.pack_plane_reference(plane, k * t_len), same_pack)
+    log(f"  K6 words: {int(res['k6']['out'][1])} of {k * t_len} slots")
+    for r in res.values():
+        r.pop("out")
+    return res
+
+
 def phase_kernels(corpus64: np.ndarray) -> dict:
     res = {"k1": check_k1(corpus64, "64 MiB"),
-           "k2": check_k2(corpus64, "64 MiB")}
+           "k2": check_k2(corpus64, "64 MiB"),
+           **check_literal_kernels(corpus64)}
     torch.cuda.empty_cache()
     big = long_range_corpus(256 * MIB)
     check_k1(big, "256 MiB")
@@ -204,6 +296,24 @@ def phase_kernels(corpus64: np.ndarray) -> dict:
     del big
     torch.cuda.empty_cache()
     return res
+
+
+def zero_launches() -> None:
+    from lrzip_next_tpu_torch.ops import anchor, compact
+    from lrzip_next_tpu_torch.ops import rans_kernels as RK
+    from lrzip_next_tpu_torch.ops import streampack as SP
+    anchor.launches = compact.launches = 0
+    RK.hist_launches = RK.encode_launches = 0
+    SP.stream_launches = SP.plane_launches = 0
+
+
+def read_launches() -> dict:
+    from lrzip_next_tpu_torch.ops import anchor, compact
+    from lrzip_next_tpu_torch.ops import rans_kernels as RK
+    from lrzip_next_tpu_torch.ops import streampack as SP
+    return {"k1": anchor.launches, "k2": compact.launches,
+            "k3": SP.stream_launches, "k4": RK.hist_launches,
+            "k5": RK.encode_launches, "k6": SP.plane_launches}
 
 
 def compress_checked(data: np.ndarray, method: str, label: str) -> list:
@@ -228,18 +338,33 @@ def compress_checked(data: np.ndarray, method: str, label: str) -> list:
         stages = ", ".join(f"{k} {v:.3f}" for k, v in
                            s.get("device_ms", {}).items())
         log(f"  chunk {s['chunk']}: chains {s['chains']} matches "
-            f"{s['matches']} match_bytes {s['match_bytes']} | device ms: "
-            f"{stages} | host finalize/walk ms {s.get('host_ms', 0):.3f}")
+            f"{s['matches']} match_bytes {s['match_bytes']} literal_bytes "
+            f"{s['literal_bytes']} | device ms: {stages} | host "
+            f"finalize/walk ms {s.get('host_ms', 0):.3f}")
+        lit_ms = s.get("literal_ms")
+        if lit_ms:
+            log("  literal encode device ms: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in lit_ms.items()) +
+                f" (sum {sum(lit_ms.values()):.3f})")
     return stats
 
 
 def phase_slice(corpus64: np.ndarray) -> dict:
-    from lrzip_next_tpu_torch.ops import anchor, compact, matcher
-    anchor.launches = compact.launches = 0
+    from lrzip_next_tpu_torch.ops import matcher
+    zero_launches()
+    stats = compress_checked(corpus64, "rans", "64 MiB long-range")
+    launches = read_launches()
+    require(all(v > 0 for v in launches.values()),
+            f"the rans path did not launch every kernel: {launches}")
+    require(all(s.get("literal_ms") for s in stats),
+            "the rans path did not take the device literal encode")
+    for _ in range(2):
+        compress_checked(corpus64, "rans", "64 MiB long-range, warm")
+    zero_launches()
     compress_checked(corpus64, "lzma", "64 MiB long-range")
-    launches = {"k1": anchor.launches, "k2": compact.launches}
-    require(launches["k1"] > 0 and launches["k2"] > 0,
-            f"main path did not launch both kernels: {launches}")
+    lzma = read_launches()
+    require(lzma["k1"] > 0 and lzma["k2"] > 0,
+            f"the lzma path did not launch K1 and K2: {lzma}")
     # the same chunk's matcher again, warm (allocator and modules loaded)
     runs = []
     for _ in range(3):
@@ -270,6 +395,23 @@ def phase_card_equals_cpu() -> None:
     require(lrzt.decompress(on_card) == raw, "8 MiB round trip differs")
     log(f"card equals cpu: 8 MiB mixed -> {len(on_card)} bytes, identical")
 
+    raw = skewed_symbols(4 * MIB).tobytes()
+    stats = []
+    on_card = lrzt.compress(raw, lrzt.Settings(method="rans",
+                                               stats_sink=stats.append),
+                            device="cuda")
+    lit = [(s.get("literal_coder"), s.get("literal_lanes", 0),
+            s["literal_bytes"]) for s in stats]
+    require(len(lit) == 1 and lit[0][0] == "rans" and lit[0][1] >= 2048,
+            f"4 MiB skewed input: literal blocks (coder, lanes, bytes) "
+            f"{lit}, not one rANS block of >= 2048 lanes")
+    on_cpu = lrzt.compress(raw, lrzt.Settings(method="rans"), device="cpu")
+    require(on_card == on_cpu, "4 MiB rans archive differs between cuda "
+            "and cpu")
+    require(lrzt.decompress(on_card) == raw, "4 MiB rans round trip differs")
+    log(f"card equals cpu: 4 MiB skewed (rans, {lit[0][2]} literals in "
+        f"{lit[0][1]} lanes) -> {len(on_card)} bytes, identical")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -283,7 +425,7 @@ def main() -> int:
     log("zstandard: " + ("missing (stub installed; zstd raises)"
                          if getattr(zstd, "IS_STUB", False) else "imports"))
     from lrzip_next_tpu_torch.ops import matcher
-    require(matcher.runtime.available(), "native host runtime unavailable")
+    matcher.require_runtime()
     log(f"host runtime: available ({time.perf_counter() - t0:.3f} s "
         f"including its g++ build)")
 
@@ -298,6 +440,14 @@ def main() -> int:
          "lrzip_next_tpu/ops/anchor_pallas.py:127", "k1"),
         ("compact_starts3", "lrzip_next_tpu_torch/ops/csrc/compact3.cu",
          "lrzip_next_tpu/ops/compact_pallas.py:248", "k2"),
+        ("pack_stream", "lrzip_next_tpu_torch/ops/csrc/streampack.cu",
+         "lrzip_next_tpu/ops/streampack.py:118", "k3"),
+        ("joint_histogram", "lrzip_next_tpu_torch/ops/csrc/rans_hist.cu",
+         "lrzip_next_tpu/ops/rans_pallas.py:143", "k4"),
+        ("encode_scan", "lrzip_next_tpu_torch/ops/csrc/rans_encode.cu",
+         "lrzip_next_tpu/ops/rans_pallas.py:281", "k5"),
+        ("pack_plane", "lrzip_next_tpu_torch/ops/csrc/streampack.cu",
+         "lrzip_next_tpu/ops/streampack.py:73", "k6"),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

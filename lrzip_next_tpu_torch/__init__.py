@@ -3,10 +3,14 @@
 The rzip long-range matcher runs on an NVIDIA GPU: anchor fingerprints
 (``ops/anchor.py``) and chain-start compaction (``ops/compact.py``) are
 CUDA C++ kernels for ``sm_90a``, the sorts, scans and selection around
-them are PyTorch (``ops/matcher.py``).  Everything that holds no JAX -
-the ``.lrz`` container, the backend codecs and the native host runtime
-(``finalize_tokens``, ``greedy_cover``) - is imported from
-``lrzip_next_tpu`` and shared, not copied.
+them are PyTorch (``ops/matcher.py``).  With ``method="rans"`` the
+chunk's literals are rANS-encoded on the GPU too
+(``models/device_path.py``): literal compaction and word compaction
+(``ops/streampack.py``), the sampled histogram and the encode scan
+(``ops/rans_kernels.py``) are CUDA C++ kernels.  Everything that holds
+no JAX - the ``.lrz`` container, the backend codecs and the native host
+runtime (``finalize_tokens``, ``greedy_cover``, ``rans_decode``) - is
+imported from ``lrzip_next_tpu`` and shared, not copied.
 
 The system has no learned parameters, and the port takes the very same
 ``Settings`` dataclass and the same input bytes as ``lrzip_next_tpu``, so

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a
-plain C interface under ``build/lrzip_next_tpu_torch/`` at the checkout
-root, at first use, and again whenever a source is newer than the
-library.  It is loaded with ``ctypes``; tensors pass as ``data_ptr()``
-and the stream as ``torch.cuda.current_stream().cuda_stream``.  Every
+``nvcc`` compiles every ``csrc/*.cu`` into an object, one process per
+source, all started together, and links the objects into one shared
+library with a plain C interface under ``build/lrzip_next_tpu_torch/``
+at the checkout root, at first use, and again whenever a source is newer
+than the library.  It is loaded with ``ctypes``; tensors pass as
+``data_ptr()`` and the stream as
+``torch.cuda.current_stream().cuda_stream``.  Every
 entry point returns ``cudaGetLastError()`` after its launches, and
 :func:`check` raises on a nonzero code.  Nothing here runs at import.
 """
@@ -22,8 +24,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
     "lrzip_next_tpu_torch"
 _LIB = BUILD_DIR / "liblrzt_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _vp = ctypes.c_void_p
 _i64 = ctypes.c_int64
@@ -35,6 +37,13 @@ _SIGNATURES = {
     "lrzt_compact3_scatter": [_vp, _vp, _vp, _vp, _i64, _vp, _vp, _vp,
                               _vp, _vp],
     "lrzt_compact3_tile": [],
+    "lrzt_pack_tile": [],
+    "lrzt_pack_bytes_count": [_vp, _i64, _vp, _vp],
+    "lrzt_pack_bytes_scatter": [_vp, _vp, _i64, _vp, _vp, _i64, _vp],
+    "lrzt_pack_plane_count": [_vp, _i64, _vp, _vp],
+    "lrzt_pack_plane_scatter": [_vp, _i64, _vp, _vp, _i64, _vp],
+    "lrzt_rans_hist": [_vp, _i64, _ci, _ci, _i64, _ci, _vp, _vp],
+    "lrzt_rans_encode": [_vp, _i64, _ci, _i64, _ci, _vp, _vp, _vp, _vp],
 }
 
 _lib = None
@@ -66,6 +75,32 @@ def _stale() -> bool:
     return any(p.stat().st_mtime > built for p in deps)
 
 
+def _run_all(cmds) -> str:
+    """Run the commands in parallel; raise with the output of the first
+    that fails.  Returns their joined output."""
+    procs = []
+    logs, failed = [], None
+    try:
+        for c in cmds:
+            procs.append(subprocess.Popen(c, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate(timeout=600)
+            logs.append(out)
+            if proc.returncode != 0 and failed is None:
+                failed = (cmd, proc.returncode, out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed is not None:
+        cmd, rc, out = failed
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+    return "".join(logs)
+
+
 def build(force: bool = False) -> Path:
     """Compile the kernels if the library is missing or stale; returns
     its path.  Raises ``RuntimeError`` with nvcc's output on failure."""
@@ -74,15 +109,19 @@ def build(force: bool = False) -> Path:
         if not force and not _stale():
             return _LIB
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = _LIB.with_name(f"{_LIB.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-               *map(str, sources())]
-        res = subprocess.run(cmd, capture_output=True, text=True,
-                             timeout=600)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{build_log}")
+        nvcc = _nvcc()
+        tag = os.getpid()
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
+        compiles = [[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src),
+                     "-o", str(obj)] for src, obj in zip(sources(), objs)]
+        tmp = _LIB.with_name(f"{_LIB.name}.{tag}.tmp")
+        try:
+            build_log = _run_all(compiles)
+            build_log += _run_all([[nvcc, *ARCH_FLAGS, "-shared",
+                                    "-o", str(tmp), *map(str, objs)]])
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
         os.replace(tmp, _LIB)
         return _LIB
 

@@ -28,6 +28,7 @@ float: coverage sums are exact integers.
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -223,7 +224,7 @@ def selected_coverage(ps, pe) -> torch.Tensor:
     return torch.where(sel, plen, 0).sum()
 
 
-class _StageClock:
+class StageClock:
     """CUDA events between the device stages of one job; inert on CPU."""
 
     def __init__(self, device: torch.device):
@@ -242,7 +243,29 @@ class _StageClock:
                 in zip(self.marks, self.marks[1:])}
 
 
-def _need_runtime() -> None:
+def _built_library_current() -> bool:
+    """The shared runtime's library exists and is no older than any of
+    its sources: another process finished the build."""
+    if not os.path.exists(runtime._SO):
+        return False
+    built = os.path.getmtime(runtime._SO)
+    return all(built >= os.path.getmtime(s) for s in runtime._SRCS)
+
+
+def require_runtime() -> None:
+    """Raise unless the native host runtime is loaded.
+
+    ``lrzip_next_tpu.runtime`` builds its library at first use into one
+    fixed temporary name, so processes that start the build together
+    race: the one whose rename comes second finds the file gone and
+    marks the build failed for the rest of its life, although the other
+    process's library is in place.  That case - build marked failed, a
+    current library on disk - is retried once with a fresh load."""
+    if runtime.available():
+        return
+    if runtime._build_failed and _built_library_current():
+        runtime._build_failed = False
+        runtime._load()
     if not runtime.available():
         raise RuntimeError("the native host runtime (lrzip_next_tpu."
                            "runtime, built with g++) is required for "
@@ -259,7 +282,9 @@ class MatchJob:
     Construction uploads the chunk and queues the device stages up to the
     K2 compaction; ``collect()`` reads the record count, finishes selection
     on the device, reads the selected pieces back and finalizes tokens on
-    the host.  ``select=False`` walks the coarse chains directly (the JAX
+    the host.  ``dev`` keeps the padded chunk on the device after
+    ``collect()`` for the device literal encode (None for a trivial
+    chunk).  ``select=False`` walks the coarse chains directly (the JAX
     package's walk mode).  ``stats`` holds the JAX package's per-chunk
     counters and, on CUDA, ``device_ms``: CUDA-event milliseconds of each
     device stage.
@@ -283,13 +308,14 @@ class MatchJob:
         self.walked = False
         self.stats: dict = {}
         self.trivial = self.n <= HASH_W + 4 or self.n < 4 * stride
+        self.dev = None
         if self.trivial:
             return
-        _need_runtime()
+        require_runtime()
         nb = bucket_size(self.n)
         padded = np.zeros(nb, dtype=np.uint8)
         padded[:self.n] = data
-        self.clock = _StageClock(self.device)
+        self.clock = StageClock(self.device)
         self.clock.mark("start")
         self.dev = torch.from_numpy(padded).to(self.device)
         self.clock.mark("upload")
@@ -373,7 +399,6 @@ class MatchJob:
             torch.cuda.synchronize(self.device)
             self.stats["device_ms"] = self.clock.ms()
             self.stats["host_ms"] = host_ms
-        self.dev = None
         return kinds, lengths, dists
 
 

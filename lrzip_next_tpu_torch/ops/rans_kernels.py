@@ -1,0 +1,160 @@
+"""K4 (sampled joint histogram) and K5 (rANS encode scan).
+
+Both take the padded literal block ``lit`` as it lies in memory: K lanes
+of ``T = len(lit) // K`` bytes each, lane ``l`` at ``lit[l*T : (l+1)*T]``
+(the JAX package's (T, K) plane is this buffer transposed).  Position
+``(l, t)`` is real when ``l*T + t < n``; its context is
+``lit[l*T + t - 1] >> (8 - ctx_bits)``, 0 at ``t = 0`` and for
+``ctx_bits = 0``.
+
+- ``joint_histogram``: (2^ctx_bits, 256) int32 counts of (context,
+  symbol) over the real positions of the leading ``T // srate`` span
+  positions of every lane (``csrc/rans_hist.cu``).
+- ``encode_scan``: the K-lane rANS encode, run from ``t = T-1`` down to
+  0: states start at 2^16; a lane whose state ``x >= f << 20`` emits its
+  low 16 bits and shifts; then ``x = (x // f) * M + cum + x % f``.
+  Returns the final states (int32 holding the uint32 bit patterns) and a
+  (T, K) int32 plane of ``word | flag << 16`` (``csrc/rans_encode.cu``).
+
+A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
+version.  Counterparts of ``lrzip_next_tpu/ops/rans_pallas.py``
+(``joint_histogram_pallas``, ``encode_scan_fused``) and of their XLA
+twins ``rans.joint_histogram`` and ``rans._encode_scan``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .anchor import _to_i32
+
+M_BITS = 12
+M = 1 << M_BITS
+L_INIT = 1 << 16
+_U32 = 0xFFFFFFFF
+
+hist_launches = 0
+encode_launches = 0
+
+
+def _lanes(lit: torch.Tensor, k: int) -> torch.Tensor:
+    """(K, T) int64 view of the lane-major block."""
+    return lit.view(k, lit.shape[0] // k).to(torch.int64)
+
+
+def _contexts(spans: torch.Tensor, ctx_bits: int) -> torch.Tensor:
+    """Context of every (lane, t): previous byte of the lane, 0 at t=0."""
+    if ctx_bits == 0:
+        return torch.zeros_like(spans)
+    prev = torch.cat([torch.zeros_like(spans[:, :1]), spans[:, :-1]], 1)
+    return prev >> (8 - ctx_bits)
+
+
+def _check(lit: torch.Tensor, k: int, ctx_bits: int, what: str) -> None:
+    if lit.dtype != torch.uint8 or lit.dim() != 1:
+        raise TypeError(f"{what}: lit must be 1-D uint8, got {lit.dtype} "
+                        f"{tuple(lit.shape)}")
+    if not lit.is_contiguous():
+        raise ValueError(f"{what} needs a contiguous tensor")
+    if k <= 0 or lit.shape[0] == 0 or lit.shape[0] % k:
+        raise ValueError(f"{what}: {lit.shape[0]} bytes do not split into "
+                         f"{k} lanes")
+    if ctx_bits not in (0, 4, 6, 8):
+        raise ValueError(f"{what}: ctx_bits {ctx_bits} not in 0/4/6/8")
+    if lit.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {lit.device}")
+
+
+def joint_histogram_reference(lit: torch.Tensor, n: int, ctx_bits: int,
+                              srate: int, k: int) -> torch.Tensor:
+    """Plain PyTorch K4."""
+    spans = _lanes(lit, k)
+    t_len = spans.shape[1]
+    r = max(t_len // srate, 1)
+    ctx = _contexts(spans, ctx_bits)[:, :r]
+    sym = spans[:, :r]
+    pos = torch.arange(k, device=lit.device)[:, None] * t_len + \
+        torch.arange(r, device=lit.device)[None, :]
+    idx = (ctx * 256 + sym)[pos < n]
+    counts = torch.bincount(idx, minlength=(1 << ctx_bits) * 256)
+    return counts.view(1 << ctx_bits, 256).to(torch.int32)
+
+
+def joint_histogram(lit: torch.Tensor, n: int, ctx_bits: int, srate: int,
+                    k: int) -> torch.Tensor:
+    """K4 on the block's own device (see the module docstring)."""
+    global hist_launches
+    _check(lit, k, ctx_bits, "joint_histogram")
+    if srate < 1:
+        raise ValueError(f"joint_histogram: srate {srate} < 1")
+    if lit.device.type == "cpu":
+        return joint_histogram_reference(lit, n, ctx_bits, srate, k)
+    t_len = lit.shape[0] // k
+    counts = torch.zeros((1 << ctx_bits, 256), dtype=torch.int32,
+                         device=lit.device)
+    lib = _build.library()
+    _build.check(lib.lrzt_rans_hist(
+        lit.data_ptr(), t_len, k, max(t_len // srate, 1), n, ctx_bits,
+        counts.data_ptr(), _build.stream_ptr(lit.device)), "rans_hist")
+    hist_launches += 1
+    return counts
+
+
+def packed_table(freqs: torch.Tensor) -> torch.Tensor:
+    """(C, 256) frequencies -> int32 ``cum * M + (f - 1)`` per entry
+    (< 2^24), the one table load K5 makes per symbol."""
+    f = freqs.to(torch.int64)
+    cum = torch.cumsum(f, -1) - f
+    return (cum * M + f - 1).to(torch.int32).contiguous()
+
+
+def encode_scan_reference(lit: torch.Tensor, n: int, freqs: torch.Tensor,
+                          ctx_bits: int, k: int):
+    """Plain PyTorch K5: a Python loop over the T span positions on (K,)
+    vectors, uint32 values held in int64 and masked."""
+    spans = _lanes(lit, k)
+    t_len = spans.shape[1]
+    idx_all = _contexts(spans, ctx_bits) * 256 + spans
+    tab = packed_table(freqs).to(torch.int64).reshape(-1)
+    base = torch.arange(k, device=lit.device) * t_len
+    x = torch.full((k,), L_INIT, dtype=torch.int64, device=lit.device)
+    plane = torch.empty((t_len, k), dtype=torch.int32, device=lit.device)
+    for t in range(t_len - 1, -1, -1):
+        v = tab[idx_all[:, t]]
+        f = (v & (M - 1)) + 1
+        cs = v >> M_BITS
+        valid = base + t < n
+        e = valid & (x >= ((f << 20) & _U32))
+        x1 = torch.where(e, x >> 16, x)
+        x2 = ((x1 // f) * M + cs + x1 % f) & _U32
+        plane[t] = (torch.where(e, x & 0xFFFF, 0)
+                    | (e.to(torch.int64) << 16)).to(torch.int32)
+        x = torch.where(valid, x2, x1)
+    return _to_i32(x), plane
+
+
+def encode_scan(lit: torch.Tensor, n: int, freqs: torch.Tensor,
+                ctx_bits: int, k: int):
+    """K5 on the block's own device (see the module docstring)."""
+    global encode_launches
+    _check(lit, k, ctx_bits, "encode_scan")
+    c = 1 << ctx_bits
+    if freqs.dtype != torch.int32 or tuple(freqs.shape) != (c, 256):
+        raise TypeError(f"encode_scan: freqs must be int32 ({c}, 256), got "
+                        f"{freqs.dtype} {tuple(freqs.shape)}")
+    if freqs.device != lit.device:
+        raise ValueError("encode_scan: tensors on different devices")
+    if lit.device.type == "cpu":
+        return encode_scan_reference(lit, n, freqs, ctx_bits, k)
+    t_len = lit.shape[0] // k
+    tab = packed_table(freqs)
+    states = torch.empty(k, dtype=torch.int32, device=lit.device)
+    plane = torch.empty((t_len, k), dtype=torch.int32, device=lit.device)
+    lib = _build.library()
+    _build.check(lib.lrzt_rans_encode(
+        lit.data_ptr(), t_len, k, n, ctx_bits, tab.data_ptr(),
+        states.data_ptr(), plane.data_ptr(),
+        _build.stream_ptr(lit.device)), "rans_encode")
+    encode_launches += 1
+    return states, plane

@@ -145,3 +145,47 @@ def test_trivial_chunks_match(n):
 def test_stride_one_not_ported():
     with pytest.raises(NotImplementedError):
         PM.MatchJob(np.zeros(1000, np.uint8), 1, CPU)
+
+
+# --- the native runtime guard ----------------------------------------------
+
+
+def _runtime_state():
+    from lrzip_next_tpu import runtime
+    return runtime, (runtime._lib, runtime._build_failed, runtime._SO)
+
+
+def test_runtime_guard_reloads_after_lost_build_race():
+    """A process whose library build lost the rename race to another
+    process marks the build failed though a current library is on disk;
+    the port's guard loads it again."""
+    runtime, saved = _runtime_state()
+    PM.require_runtime()
+    try:
+        runtime._lib = None
+        runtime._build_failed = True
+        assert not runtime.available()
+        PM.require_runtime()
+        assert runtime.available()
+        assert runtime._lib is not None and not runtime._build_failed
+    finally:
+        runtime._lib, runtime._build_failed, runtime._SO = saved
+
+
+@pytest.mark.parametrize("library", ["missing", "garbage"])
+def test_runtime_guard_raises_without_a_library(tmp_path, library):
+    runtime, saved = _runtime_state()
+    PM.require_runtime()
+    so = tmp_path / "_hostops.so"
+    if library == "garbage":
+        so.write_bytes(b"not a shared library")
+    try:
+        runtime._lib = None
+        runtime._build_failed = True
+        runtime._SO = str(so)
+        with pytest.raises(RuntimeError, match="native host runtime"):
+            PM.require_runtime()
+        assert not runtime.available()
+    finally:
+        runtime._lib, runtime._build_failed, runtime._SO = saved
+    assert runtime.available()

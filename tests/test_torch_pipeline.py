@@ -2,6 +2,7 @@
 archive bytes as lrzip_next_tpu.compress with use_tpu=True, and the port
 starts no JAX."""
 
+import io
 import os
 import subprocess
 import sys
@@ -13,6 +14,8 @@ import torch
 
 import lrzip_next_tpu as lrz
 import lrzip_next_tpu_torch as lrzt
+from lrzip_next_tpu.format.constants import CTYPE_NONE, CTYPE_RANS
+from lrzip_next_tpu.models.info import get_fileinfo
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -86,8 +89,9 @@ def test_unknown_device_type_raises():
 
 @pytest.mark.parametrize("kw", [
     {"anchor_stride": 1},
-    {"method": "rans"},
+    {"unlimited": True, "max_chunk": 50_000, "method": "rans"},
     {"unlimited": True, "max_chunk": 50_000},
+    {"use_mesh": True, "max_chunk": 50_000},
 ])
 def test_unported_settings_raise(kw):
     with pytest.raises(NotImplementedError):
@@ -112,10 +116,20 @@ def test_port_imports_no_jax(tmp_path):
                                 device="cpu")
         assert lrzt.decompress(archive) == data
         assert len(archive) < len(data) // 2
+        p = rng.random(256) ** 8
+        skewed = rng.choice(256, 300_000, p=p / p.sum()).astype(np.uint8)
+        text = (skewed.tobytes() + base)[:350_000]
+        archive = lrzt.compress(text, lrzt.Settings(method="rans"),
+                                device="cpu")
+        assert lrzt.decompress(archive) == text
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m.startswith("lrzip_next_tpu.ops.matcher")
                or m.startswith("lrzip_next_tpu.ops.anchor_pallas")
-               or m.startswith("lrzip_next_tpu.ops.compact_pallas")]
+               or m.startswith("lrzip_next_tpu.ops.compact_pallas")
+               or m.startswith("lrzip_next_tpu.ops.rans")
+               or m.startswith("lrzip_next_tpu.ops.rans_pallas")
+               or m.startswith("lrzip_next_tpu.ops.streampack")
+               or m.startswith("lrzip_next_tpu.models.device_path")]
         assert not bad, bad
         print("ok")
     """)
@@ -125,3 +139,131 @@ def test_port_imports_no_jax(tmp_path):
                          timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+# --- method="rans": the device literal encode ------------------------------
+
+
+def _zipf(n: int, seed: int) -> bytes:
+    """Skewed i.i.d. symbols: no long repeats, rANS-compressible."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, 257) ** 1.2
+    return rng.choice(256, n, p=p / p.sum()).astype(np.uint8).tobytes()
+
+
+def _literal_ctypes(archive: bytes) -> list:
+    """Per chunk, the c_type of every literal-stream block."""
+    info = get_fileinfo(io.BytesIO(archive))
+    return [[ct for sno, ct, _, _ in ch.block_details if sno == 1]
+            for ch in info.chunks]
+
+
+@pytest.mark.parametrize("level", [1, 3, 7, 8])
+def test_rans_archive_bytes_match(corpus_factory, level):
+    """Levels 1/3/7/8 take ctx_bits 0/4/6/8."""
+    data = corpus_factory(150_000, "mixed") + _zipf(100_000, level)
+    ours = _same_archive(data, method="rans", compression_level=level)
+    assert _literal_ctypes(ours) == [[CTYPE_RANS]]
+
+
+def test_rans_archive_bytes_match_2048_lanes():
+    """Over 2 MiB of literals: K = 2048 lanes, one rANS literal block."""
+    data = _zipf(2_200_000, 5)
+    ours = _same_archive(data, method="rans")
+    assert _literal_ctypes(ours) == [[CTYPE_RANS]]
+
+
+def test_rans_random_literals_take_raw_block(corpus_factory):
+    """rANS cannot shrink random literals: a raw CTYPE_NONE block."""
+    ours = _same_archive(corpus_factory(200_000, "random"), method="rans")
+    assert _literal_ctypes(ours) == [[CTYPE_NONE]]
+
+
+def test_rans_all_match_chunk_has_no_literal_block():
+    half = _zipf(100_000, 4)
+    ours = _same_archive(half + half, method="rans", max_chunk=100_000,
+                         cross_chunk=True)
+    assert _literal_ctypes(ours) == [[CTYPE_RANS], []]
+
+
+@pytest.mark.parametrize("size", [0, 1, 31])
+def test_rans_trivial_chunks_take_host_codec(size):
+    _same_archive(_zipf(size, size), method="rans")
+
+
+def test_rans_three_chunks(corpus_factory):
+    data = corpus_factory(200_000, "mixed") + _zipf(100_000, 9)
+    stats = []
+    ours = lrzt.compress(data, lrzt.Settings(method="rans",
+                                             max_chunk=100_000,
+                                             stats_sink=stats.append),
+                         device="cpu")
+    assert ours == _jax_archive(data, method="rans", max_chunk=100_000)
+    assert lrz.decompress(ours) == data
+    assert [s["chunk"] for s in stats] == [0, 1, 2]
+    assert len(_literal_ctypes(ours)) == 3
+
+
+def test_rans_cross_chunk(corpus_factory):
+    base = corpus_factory(120_000, "mixed") + _zipf(60_000, 8)
+    data = base + _zipf(40_000, 10) + base[30_000:]
+    _same_archive(data, method="rans", max_chunk=120_000, cross_chunk=True)
+
+
+@pytest.mark.parametrize("kind,coder", [("zipf", "rans"), ("random", "none")])
+def test_rans_stats_name_the_literal_block(corpus_factory, kind, coder):
+    """The chunk stats name the literal block's coder and lane count."""
+    data = _zipf(200_000, 3) if kind == "zipf" else \
+        corpus_factory(200_000, "random")
+    stats = []
+    ours = lrzt.compress(data, lrzt.Settings(method="rans",
+                                             stats_sink=stats.append),
+                         device="cpu")
+    assert ours == _jax_archive(data, method="rans")
+    want = {"rans": CTYPE_RANS, "none": CTYPE_NONE}[coder]
+    assert _literal_ctypes(ours) == [[want]]
+    assert [s["literal_coder"] for s in stats] == [coder]
+    from lrzip_next_tpu_torch.ops.rans import pick_lanes
+    assert stats[0]["literal_lanes"] == pick_lanes(stats[0]["literal_bytes"])
+
+
+@pytest.mark.parametrize("method", ["gzip", "rans"])
+def test_chunk_leaves_no_device_buffer(corpus_factory, monkeypatch, method):
+    """Each chunk's padded device copy is released once its blocks are
+    coded, so two chunks' buffers are never held at once."""
+    from lrzip_next_tpu_torch.models import pipeline as P
+    jobs = []
+
+    class Spy(P.MatchJob):
+        def __init__(self, *a, **kw):
+            assert all(j.dev is None for j in jobs)
+            super().__init__(*a, **kw)
+            jobs.append(self)
+
+    monkeypatch.setattr(P, "MatchJob", Spy)
+    data = corpus_factory(200_000, "mixed") + _zipf(100_000, 2)
+    ours = lrzt.compress(data, lrzt.Settings(method=method,
+                                             max_chunk=100_000),
+                         device="cpu")
+    assert len(jobs) == 3 and all(j.dev is None for j in jobs)
+    assert lrz.decompress(ours) == data
+
+
+@pytest.mark.parametrize("size", [0, 1, 31])
+def test_trivial_input_needs_no_runtime(size):
+    """Inputs too small for the matcher never load the native runtime,
+    as in lrzip_next_tpu."""
+    from lrzip_next_tpu import runtime
+    data = _zipf(size, size)
+    want = _jax_archive(data, method="gzip")
+    saved = (runtime._lib, runtime._build_failed, runtime._SO)
+    try:
+        runtime._lib = None
+        runtime._build_failed = True
+        runtime._SO = os.path.join(ROOT, "no-such-dir", "_hostops.so")
+        assert not runtime.available()
+        got = lrzt.compress(data, lrzt.Settings(method="gzip"),
+                            device="cpu")
+    finally:
+        runtime._lib, runtime._build_failed, runtime._SO = saved
+    assert got == want
