@@ -6,26 +6,41 @@
 Phases, in order; any failure exits nonzero before the last line:
 
 1. environment: the card's name and power limit, torch and CUDA versions,
-   whether ``zstandard`` imports, and the native host runtime (required);
+   whether ``zstandard`` imports, and the port's native host runtime
+   (required; built with g++ at first use);
 2. build: nvcc compiles the port's CUDA kernels from ``ops/csrc``, one
    process per source, all started together;
 3. kernels: every kernel against its plain PyTorch version on the card,
    bit for bit, with both times (median of 5, CUDA events): K1
    (anchor_fps) and K2 (compact_starts3) at the matcher's shapes for a
    64 MiB and a 256 MiB chunk (stride 8); K3 (pack_stream), K4
-   (joint_histogram), K5 (encode_scan) and K6 (pack_plane) at the shapes
-   of the 64 MiB chunk's literal stream, made from its real matcher
-   tokens (level 7, ctx_bits 6; K4 and K5 also at ctx_bits 8, untimed);
+   (joint_histogram), K5 (encode_scan), K6 (pack_plane) and K7
+   (decode_scan) at the shapes of the 64 MiB chunk's literal stream, made
+   from its real matcher tokens (level 7, ctx_bits 6; K4, K5 and K7 also
+   at ctx_bits 8), and K7 at 64 lanes; the replay kernels K8a
+   (ragged_concat), K8c (small_merge) and K8b (layered_pass) on the
+   fragment tables that the device replay of the 64 MiB long-range chunk
+   and of the 64 MiB pasted-pieces chunk hands them.  Beside each
+   kernel's time stand its bound (see ``bound``) and, where one PyTorch
+   call computes the same function, that call's time;
 4. the slice: ``lrzip_next_tpu_torch.compress`` of the 64 MiB long-range
-   corpus with ``method="rans"`` (the device literal encode: K1-K6), with
-   lzma (host literal coder: K1, K2), and of a 16 MiB word-soup text with
-   holes (gzip, which takes the walk fallback), each decoded by the
-   shared ``decompress`` and compared; the launch counters are zeroed
-   just before each 64 MiB run and must rise for every kernel it uses;
-5. card equals CPU: an 8 MiB mixed input (gzip) and a 4 MiB skewed input
-   whose literals make one rANS block of 4096 lanes (rans), each
-   compressed with device="cuda" and with device="cpu", give the same
-   archive bytes.
+   corpus with ``method="rans"`` (the device literal encode: K1-K6) and
+   ``decompress`` on the card of that archive and of the 64 MiB
+   pasted-pieces one, whose plan is layered (the device literal decode
+   and the device replay: K7, K8a, K8b, K8c), cold and twice warm; the
+   same with lzma (host literal coder: K1, K2; host decode, no kernel),
+   and a 16 MiB word-soup text with holes (gzip, which takes the walk
+   fallback).  The launch counters are zeroed just before each run and
+   read just after: every kernel of the path must have launched.  A
+   profile of one warm decompress shows where its time goes;
+5. card equals CPU: an 8 MiB mixed input (gzip), a 4 MiB skewed input
+   whose literals make one rANS block of 4096 lanes (rans) and a 4 MiB
+   pasted-pieces input (rans, layered replay), each compressed with
+   device="cuda" and with device="cpu", give the same archive bytes, and
+   each device decodes the other's archive;
+6. corrupt payloads on the card: a flipped word and a word count cut
+   short must raise ``ValueError`` from the literal decode, and a flipped
+   byte in an archive's literal block from ``decompress``.
 
 The line before the last is a JSON object of the kernels, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -34,7 +49,12 @@ nonzero and prints no result.  All data is generated from fixed seeds.
 
 from __future__ import annotations
 
+import cProfile
+import importlib.util
+import io
 import json
+import os
+import pstats
 import statistics
 import subprocess
 import sys
@@ -47,10 +67,22 @@ import torch
 ROOT = Path(__file__).resolve().parent
 MIB = 1 << 20
 STRIDE = 8  # level 7
+# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
+# 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, where a fused
+# multiply-add counts two, so 33.5e12 plain 32-bit operations a second is
+# the rate the kernels' integer arithmetic is held to.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT_OPS_PER_S = 33.5e12
 
 
 def log(msg: str) -> None:
+    """Print; with ``CHIP_SMOKE_LOG`` set, also append to that file (for
+    output longer than a terminal keeps)."""
     print(msg, flush=True)
+    path = os.environ.get("CHIP_SMOKE_LOG")
+    if path:
+        with open(path, "a") as fd:
+            fd.write(msg + "\n")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -70,6 +102,17 @@ def cuda_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def bound(moved_bytes: int, int_ops: int) -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move (each input read once, each output written once)
+    over the memory rate, and its integer operations over the peak rate."""
+    by_bytes = moved_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = int_ops / PEAK_INT_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes": int(moved_bytes), "bound_ops": int(int_ops)}
 
 
 def text_blob() -> np.ndarray:
@@ -112,6 +155,27 @@ def word_soup_with_holes(total: int) -> np.ndarray:
     for off in range(5_000, size - 10_000, 23_000):
         holed[off:off + 8] = rng.integers(0, 256, 8, dtype=np.uint8)
     return np.concatenate([base, holed, base[:total - 2 * size]])
+
+
+def pasted_corpus(total: int) -> np.ndarray:
+    """A quarter of seeded i.i.d. bytes of a Zipf-like law (compressible,
+    no long repeats), a region of short pieces of it (40 to 400 bytes)
+    pasted in random order, and copies of that region and of its copies:
+    long matches over a fragmented region, whose replay plan is layered."""
+    rng = np.random.default_rng(13)
+    part = total // 4
+    law = 1.0 / np.arange(1, 257) ** 1.2
+    base = rng.choice(256, part, p=law / law.sum()).astype(np.uint8)
+    lens = rng.integers(40, 400, part // 200)
+    lens = lens[np.cumsum(lens) <= part]
+    starts = rng.integers(0, part - 400, len(lens))
+    idx = np.repeat(starts - (np.cumsum(lens) - lens), lens) + \
+        np.arange(int(lens.sum()))
+    frag = base[idx]
+    out = np.concatenate([base, frag, frag, frag[len(frag) // 3:], base,
+                          frag])
+    require(len(out) >= total, "pasted corpus too short")
+    return out[:total]
 
 
 def mixed_corpus(total: int) -> np.ndarray:
@@ -169,9 +233,16 @@ def check_k1(data: np.ndarray, label: str) -> dict:
     ms = cuda_ms(lambda: anchor_fps(padded, STRIDE, ma))
     plain_ms = cuda_ms(lambda: anchor_fps_reference(padded, STRIDE, ma))
     anchors = int((fpa != 0x7FFFFFFF).sum())
+    # bytes: the chunk in, two int32 fingerprints a window out; operations
+    # a window: 12 for the two tree hashes (6 multiply-adds), 2 * (stride
+    # / 2) + 2 for the centred-window minimum, compare and select
+    bnd = bound(nb + 8 * ma, ma * (12 + STRIDE + 2))
     log(f"K1 anchor_fps {label}: n={nb} ma={ma} anchors={anchors} "
-        f"bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        f"bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
+        f"({bnd['bound_bytes']} bytes); no single library call")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
+            "library_ms": None}
 
 
 def check_k2(data: np.ndarray, label: str) -> dict:
@@ -197,9 +268,24 @@ def check_k2(data: np.ndarray, label: str) -> dict:
     ms = cuda_ms(lambda: compact_starts3(start, sp, sd, end_at))
     plain_ms = cuda_ms(
         lambda: compact_starts3_reference(start, sp, sd, end_at))
-    log(f"K2 compact_starts3 {label}: k={start.shape[0]} n={k} bit-equal; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+    def library():
+        idx = torch.nonzero(start).squeeze(1)
+        return sp[idx], sd[idx], end_at[idx]
+
+    library_ms = cuda_ms(library)
+    m = start.shape[0]
+    # bytes: the flags and three int32 payloads in, n records of three and
+    # the count out; operations: flag test, ballot rank and slot per
+    # element, three moves per record
+    bnd = bound(13 * m + 12 * k + 4, 4 * m + 3 * k)
+    log(f"K2 compact_starts3 {label}: k={m} n={k} bit-equal; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
+        f"({bnd['bound_bytes']} bytes), torch.nonzero + 3 gathers "
+        f"{library_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
+            "library_ms": library_ms}
 
 
 def skewed_symbols(total: int) -> np.ndarray:
@@ -210,9 +296,12 @@ def skewed_symbols(total: int) -> np.ndarray:
     return rng.choice(256, total, p=p / p.sum()).astype(np.uint8)
 
 
-def timed_pair(name: str, label: str, kernel, plain, same) -> dict:
+def timed_pair(name: str, label: str, kernel, plain, same, bnd: dict,
+               library=None, library_name: str = "") -> dict:
     """Run the kernel and its plain version once each, require ``same`` of
-    their results (0 = equal), then time both (median of 5)."""
+    their results (0 = equal), then time both, and the one library call
+    ``library`` where there is one (median of 5 each).  ``bnd`` is the
+    kernel's ``bound`` at these inputs."""
     got = kernel()
     torch.cuda.synchronize()
     ref = plain()
@@ -221,9 +310,15 @@ def timed_pair(name: str, label: str, kernel, plain, same) -> dict:
     require(err == 0, f"{name} differs from its plain version at {label}")
     ms = cuda_ms(kernel)
     plain_ms = cuda_ms(plain)
+    library_ms = cuda_ms(library) if library is not None else None
     log(f"{name} {label}: bit-equal; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "out": got}
+        f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by "
+        f"{bnd['bound_by']} ({bnd['bound_bytes']} bytes, "
+        f"{bnd['bound_ops']} operations), " +
+        (f"{library_name} {library_ms:.4f} ms" if library is not None
+         else "no single library call"))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
+            "library_ms": library_ms, "out": got}
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -234,8 +329,152 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
+def check_k7(words, states, freqs, n: int, ctx_bits: int, t_len: int,
+             want: torch.Tensor, label: str) -> dict:
+    """K7 against its plain version on the same CUDA tensors; the decoded
+    block must also equal ``want`` and every final state 2^16."""
+    from lrzip_next_tpu_torch.ops import rans_kernels as RK
+    k = states.shape[0]
+    nw = words.shape[0]
+    # bytes: the words, the states in and out, the cumulative table, and
+    # the K*T symbol block out; operations a symbol, as the function needs
+    # them (a slot-to-symbol table, not this kernel's search): the slot
+    # mask, one table load, 6 for the state update and renormalisation, 2
+    # for its share of the step's prefix.  Neither binds: the T steps are
+    # a dependent chain (see ``check_k7_small``)
+    bnd = bound(2 * nw + 8 * k + 2 * 257 * freqs.shape[0] + k * t_len,
+                10 * n)
+    res = timed_pair(
+        f"K7 decode_scan ctx_bits {ctx_bits}", label,
+        lambda: RK.decode_scan(words, states, freqs, n, ctx_bits, t_len),
+        lambda: RK.decode_scan_reference(words, states, freqs, n, ctx_bits,
+                                         t_len),
+        lambda a, b: max(max_err(a[0], b[0]), max_err(a[1], b[1])), bnd)
+    plane, xf = res["out"]
+    require(torch.equal(plane[:n], want[:n]),
+            f"K7 does not return the encoded block at {label}")
+    require(bool((xf == RK.L_INIT).all()),
+            f"K7 final states are not all 2^16 at {label}")
+    log(f"  K7: {n} symbols from {nw} words in {t_len} dependent steps of "
+        f"{k} lanes: {n / res['ms'] / 1e6:.4f} GB/s of output")
+    res["t_len"], res["lanes"] = t_len, k
+    return res
+
+
+def check_k7_small() -> float:
+    """K7 at the fewest lanes (K = 64, one lane a thread, two warps).
+    Returns its microseconds a step: with two warps nothing but the
+    step's own dependent chain (search, update, prefix, word fetch,
+    barrier) takes time, so T times this is the least a decode of T steps
+    takes on this design, whatever its lane count."""
+    from lrzip_next_tpu_torch.ops import rans
+    n = 64 * 1024 - 5
+    lit = torch.from_numpy(skewed_symbols(n)).cuda()
+    k, t_len, _ = rans.plan(n)
+    require(k == 64, f"small K7 case planned {k} lanes, not 64")
+    freqs, states, packed, n_words, t_len = rans.encode_arrays(lit, n, 6)
+    res = check_k7(packed[:int(n_words)].contiguous(), states, freqs, n, 6,
+                   t_len, lit, f"K={k} T={t_len}")
+    return res["ms"] * 1e3 / t_len
+
+
+def replay_tables(corpus: np.ndarray):
+    """One device replay of the chunk from its matcher tokens and its
+    literal block, with every call of a replay kernel's wrapper recorded:
+    {wrapper name: [argument tuples]}, tensors cloned as they were handed
+    over.  The replayed chunk must equal the input."""
+    from lrzip_next_tpu_torch.format.tokens import split_long_runs
+    from lrzip_next_tpu_torch.models import device_path as DP
+    from lrzip_next_tpu_torch.ops import matcher, rans
+    from lrzip_next_tpu_torch.ops import replay_ragged as RR
+    from lrzip_next_tpu_torch.ops import streampack as SP
+    job = matcher.MatchJob(corpus, STRIDE, torch.device("cuda"))
+    kinds, lengths, dists = split_long_runs(*job.collect())
+    ls, le, n_lit = DP.literal_spans(kinds, lengths)
+    mask = DP.literal_mask(job.dev.shape[0], ls, le, job.dev.device)
+    k, t_len, _ = rans.plan(n_lit)
+    lit = SP.pack_stream(job.dev, mask, k * t_len)[0]   # as K7 leaves it
+    del job, mask
+    names = ("ragged_concat", "small_merge", "layered_pass")
+    real = {name: getattr(RR, name) for name in names}
+    calls = {name: [] for name in names}
+
+    def spy(name):
+        def wrapper(*args):
+            calls[name].append(tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args))
+            return real[name](*args)
+        return wrapper
+
+    for name in names:
+        setattr(RR, name, spy(name))
+    try:
+        out = DP.replay_tokens_device_array(kinds, lengths, dists, lit)
+    finally:
+        for name in names:
+            setattr(RR, name, real[name])
+    require(out is not None and
+            torch.equal(out, torch.from_numpy(corpus).cuda()),
+            "the device replay does not rebuild the chunk")
+    log(f"  replay plan: {len(kinds)} tokens, {n_lit} literals; wrapper "
+        f"calls " + ", ".join(f"{k} {len(v)}" for k, v in calls.items()))
+    return calls
+
+
+def check_replay_kernels(corpus: np.ndarray, label: str) -> dict:
+    """K8a, K8c and, where the plan is layered, K8b against their plain
+    versions on the tables of this chunk's device replay."""
+    from lrzip_next_tpu_torch.ops import replay_ragged as RR
+    calls = replay_tables(corpus)
+    res = {}
+    none = "no single library call: no PyTorch function takes ragged slices"
+
+    def frag_bytes(frags):
+        return int(frags[2].sum())
+
+    lit, frags, lo, ncells = calls["ragged_concat"][0]
+    # K8a bytes: the fragments' bytes and their records in, every cell
+    # out; operations: one address and one move per byte
+    nb = frag_bytes(frags)
+    res["k8a"] = timed_pair(
+        "K8a ragged_concat", f"{label}: {frags.shape[1]} fragments, {nb} "
+        f"bytes, {ncells} cells",
+        lambda: RR.ragged_concat(lit, frags, lo, ncells),
+        lambda: RR.ragged_concat_reference(lit, frags, lo, ncells), max_err,
+        bound(nb + 24 * frags.shape[1] + 8 * lo.shape[0] + ncells * RR.CELL,
+              2 * nb + ncells * RR.CELL))
+    if calls["small_merge"]:
+        out0, lit, frags, lo = calls["small_merge"][0]
+        nb = frag_bytes(frags)
+        mine, plain = out0.clone(), out0.clone()
+        # K8c and K8b copy in place from bytes they do not write, so a
+        # second run on the same buffer writes the same bytes again
+        res["k8c"] = timed_pair(
+            "K8c small_merge", f"{label}: {frags.shape[1]} fragments, {nb} "
+            f"bytes, {lo.shape[0] - 1} touched cells",
+            lambda: RR.small_merge(mine, lit, frags, lo),
+            lambda: RR.small_merge_reference(plain, lit, frags, lo), max_err,
+            bound(2 * nb + 24 * frags.shape[1] + 8 * lo.shape[0], 2 * nb))
+    for i, (buf0, frags, lo) in enumerate(calls["layered_pass"]):
+        nb = frag_bytes(frags)
+        mine, plain = buf0.clone(), buf0.clone()
+        r = timed_pair(
+            "K8b layered_pass", f"{label}, pass {i + 1}: {frags.shape[1]} "
+            f"fragments, {nb} bytes, {lo.shape[0] - 1} touched cells",
+            lambda: RR.layered_pass(mine, frags, lo),
+            lambda: RR.layered_pass_reference(plain, frags, lo), max_err,
+            bound(2 * nb + 24 * frags.shape[1] + 8 * lo.shape[0], 2 * nb))
+        res.setdefault("k8b", r)
+    for r in res.values():
+        r.pop("out")
+    log(f"  K8a-c {label}: {none}")
+    torch.cuda.empty_cache()
+    return res
+
+
 def check_literal_kernels(corpus64: np.ndarray) -> dict:
-    """K3-K6 at the shapes of the 64 MiB chunk's literal stream."""
+    """K3-K7 at the shapes of the 64 MiB chunk's literal stream."""
     from lrzip_next_tpu_torch.models import device_path as DP
     from lrzip_next_tpu_torch.ops import matcher, rans
     from lrzip_next_tpu_torch.ops import rans_kernels as RK
@@ -243,8 +482,10 @@ def check_literal_kernels(corpus64: np.ndarray) -> dict:
     job = matcher.MatchJob(corpus64, STRIDE, torch.device("cuda"))
     kinds, lengths, _ = job.collect()
     ls, le, n_lit = DP.literal_spans(kinds, lengths)
-    mask = DP.literal_mask(job.dev.shape[0], ls, le, job.dev.device)
+    npos = job.dev.shape[0]
+    mask = DP.literal_mask(npos, ls, le, job.dev.device)
     k, t_len, srate = rans.plan(n_lit)
+    cap = k * t_len
     label = (f"n_lit={n_lit} in {len(ls)} spans, K={k} T={t_len} "
              f"srate={srate}")
     log(f"literal stream of the 64 MiB chunk: {label}")
@@ -252,43 +493,86 @@ def check_literal_kernels(corpus64: np.ndarray) -> dict:
     def same_pack(a, b):
         return max(max_err(a[1], b[1]), max_err(a[0], b[0]))
 
+    # K3 bytes: the chunk and its mask in, the zero-padded block and the
+    # count out; operations: flag test, rank and slot per position, one
+    # move per literal
     res = {"k3": timed_pair(
         "K3 pack_stream", "64 MiB chunk",
-        lambda: SP.pack_stream(job.dev, mask, k * t_len),
-        lambda: SP.pack_stream_reference(job.dev, mask, k * t_len),
-        same_pack)}
+        lambda: SP.pack_stream(job.dev, mask, cap),
+        lambda: SP.pack_stream_reference(job.dev, mask, cap),
+        same_pack, bound(2 * npos + cap + 4, 3 * npos + n_lit),
+        lambda: torch.masked_select(job.dev, mask), "torch.masked_select")}
     lit = res["k3"]["out"][0]
     require(int(res["k3"]["out"][1]) == n_lit, "K3 count != n_lit")
+    rows = max(t_len // srate, 1)
+    spans = lit.view(k, t_len)[:, :rows].to(torch.int64)
     for ctx_bits in (6, 8):
+        cells = 256 << ctx_bits
+        prev = torch.cat([torch.zeros_like(spans[:, :1]), spans[:, :-1]], 1)
+        idx = ((prev >> (8 - ctx_bits)) * 256 + spans).reshape(-1)
+        # K4 bytes: the sampled positions in, the table out; operations a
+        # sample: context shift, index, validity test, add
         hist = timed_pair(
             f"K4 joint_histogram ctx_bits {ctx_bits}", label,
             lambda: RK.joint_histogram(lit, n_lit, ctx_bits, srate, k),
             lambda: RK.joint_histogram_reference(lit, n_lit, ctx_bits,
-                                                 srate, k), max_err)
+                                                 srate, k), max_err,
+            bound(rows * k + 4 * cells, 4 * rows * k),
+            lambda: torch.bincount(idx, minlength=cells), "torch.bincount")
         freqs = rans.quantize_freqs(hist["out"])
+        # K5 bytes: the block and the packed table in, the (T, K) int32
+        # plane and the states out; operations a symbol: context, table
+        # load, compare, shift, divide, remainder, multiply, two adds, the
+        # emission word
         enc = timed_pair(
             f"K5 encode_scan ctx_bits {ctx_bits}", label,
             lambda: RK.encode_scan(lit, n_lit, freqs, ctx_bits, k),
             lambda: RK.encode_scan_reference(lit, n_lit, freqs, ctx_bits,
                                              k),
-            lambda a, b: max(max_err(a[0], b[0]), max_err(a[1], b[1])))
+            lambda a, b: max(max_err(a[0], b[0]), max_err(a[1], b[1])),
+            bound(cap + 4 * cells + 4 * cap + 4 * k, 12 * n_lit))
+        states, plane = enc["out"]
+        packed, n_words = SP.pack_plane(plane, cap)
+        dec = check_k7(packed[:int(n_words)].contiguous(), states, freqs,
+                       n_lit, ctx_bits, t_len, lit, label)
         if ctx_bits == 6:   # level 7, the main path's
-            res["k4"], res["k5"] = hist, enc
+            res["k4"], res["k5"], res["k7"] = hist, enc, dec
     plane = res["k5"]["out"][1]
+    n_words = int(SP.pack_plane(plane, cap)[1])
+    # K6 bytes: the int32 plane in, the flagged 16-bit words and the count
+    # out; operations: flag test, rank and slot per cell, one move per word
     res["k6"] = timed_pair(
         "K6 pack_plane", label,
-        lambda: SP.pack_plane(plane, k * t_len),
-        lambda: SP.pack_plane_reference(plane, k * t_len), same_pack)
-    log(f"  K6 words: {int(res['k6']['out'][1])} of {k * t_len} slots")
+        lambda: SP.pack_plane(plane, cap),
+        lambda: SP.pack_plane_reference(plane, cap), same_pack,
+        bound(4 * cap + 2 * n_words + 4, 3 * cap + n_words),
+        lambda: torch.masked_select(plane, plane >= 1 << 16),
+        "torch.masked_select")
+    require(int(res["k6"]["out"][1]) == n_words, "K6 count differs")
+    log(f"  K6 words: {n_words} of {cap} slots")
     for r in res.values():
         r.pop("out")
     return res
 
 
-def phase_kernels(corpus64: np.ndarray) -> dict:
+def phase_kernels(corpus64: np.ndarray, pasted64: np.ndarray) -> dict:
     res = {"k1": check_k1(corpus64, "64 MiB"),
            "k2": check_k2(corpus64, "64 MiB"),
            **check_literal_kernels(corpus64)}
+    step_us = check_k7_small()
+    log(f"  K7 dependent chain: {step_us:.4f} us a step at 64 lanes; the "
+        f"64 MiB chunk's {res['k7']['t_len']} steps need at least "
+        f"{step_us * res['k7']['t_len'] / 1e3:.4f} ms, and take "
+        f"{res['k7']['ms']:.4f} ms at {res['k7']['lanes']} lanes")
+    torch.cuda.empty_cache()
+    # the layered passes exist only where the plan is layered: K8b's row
+    # comes from the long-range chunk if its plan has them, else from the
+    # pasted-pieces chunk
+    pasted = check_replay_kernels(pasted64, "64 MiB pasted pieces")
+    res.update(pasted)
+    res.update(check_replay_kernels(corpus64, "64 MiB long-range"))
+    require(all(k in res for k in ("k8a", "k8b", "k8c")),
+            f"a replay kernel was not reached: {sorted(res)}")
     torch.cuda.empty_cache()
     big = long_range_corpus(256 * MIB)
     check_k1(big, "256 MiB")
@@ -302,38 +586,42 @@ def zero_launches() -> None:
     from lrzip_next_tpu_torch.ops import anchor, compact
     from lrzip_next_tpu_torch.ops import rans_kernels as RK
     from lrzip_next_tpu_torch.ops import streampack as SP
+    from lrzip_next_tpu_torch.ops import replay_ragged as RR
     anchor.launches = compact.launches = 0
-    RK.hist_launches = RK.encode_launches = 0
+    RK.hist_launches = RK.encode_launches = RK.decode_launches = 0
     SP.stream_launches = SP.plane_launches = 0
+    RR.ragged_launches = RR.layered_launches = RR.small_launches = 0
 
 
 def read_launches() -> dict:
     from lrzip_next_tpu_torch.ops import anchor, compact
     from lrzip_next_tpu_torch.ops import rans_kernels as RK
     from lrzip_next_tpu_torch.ops import streampack as SP
+    from lrzip_next_tpu_torch.ops import replay_ragged as RR
     return {"k1": anchor.launches, "k2": compact.launches,
             "k3": SP.stream_launches, "k4": RK.hist_launches,
-            "k5": RK.encode_launches, "k6": SP.plane_launches}
+            "k5": RK.encode_launches, "k6": SP.plane_launches,
+            "k7": RK.decode_launches, "k8a": RR.ragged_launches,
+            "k8b": RR.layered_launches, "k8c": RR.small_launches}
 
 
-def compress_checked(data: np.ndarray, method: str, label: str) -> list:
+ENCODE_KERNELS = ("k1", "k2", "k3", "k4", "k5", "k6")
+DECODE_KERNELS = ("k7", "k8a", "k8b", "k8c")
+
+
+def compress_timed(raw: bytes, method: str, label: str):
+    """One ``compress`` on the card: (archive, per-chunk stats)."""
     import lrzip_next_tpu_torch as lrzt
     stats = []
     settings = lrzt.Settings(method=method, stats_sink=stats.append)
-    raw = data.tobytes()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    archive = lrzt.compress(raw, settings)
+    archive = lrzt.compress(raw, settings, device="cuda")
     secs = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out = lrzt.decompress(archive)
-    dsecs = time.perf_counter() - t0
-    require(out == raw, f"{label}: round trip differs")
     dev_ms = sum(sum(s.get("device_ms", {}).values()) for s in stats)
     log(f"slice {label} ({method}): {len(raw)} -> {len(archive)} bytes, "
         f"ratio {len(raw) / len(archive):.4f}, compress {secs:.3f} s, "
-        f"decompress (host) {dsecs:.3f} s, matcher device stages "
-        f"{dev_ms:.3f} ms")
+        f"matcher device stages {dev_ms:.3f} ms")
     for s in stats:
         stages = ", ".join(f"{k} {v:.3f}" for k, v in
                            s.get("device_ms", {}).items())
@@ -346,25 +634,134 @@ def compress_checked(data: np.ndarray, method: str, label: str) -> list:
             log("  literal encode device ms: " + ", ".join(
                 f"{k} {v:.3f}" for k, v in lit_ms.items()) +
                 f" (sum {sum(lit_ms.values()):.3f})")
-    return stats
+    return archive, stats
 
 
-def phase_slice(corpus64: np.ndarray) -> dict:
+def decompress_timed(archive: bytes, raw: bytes, label: str) -> float:
+    """One ``decompress`` on the card, compared with the input; host-clock
+    seconds."""
+    import lrzip_next_tpu_torch as lrzt
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = lrzt.decompress(archive, device="cuda")
+    secs = time.perf_counter() - t0
+    require(out == raw, f"{label}: decompress differs from the input")
+    log(f"slice {label}: decompress on the card {secs:.3f} s, equals the "
+        f"input")
+    return secs
+
+
+def profile_decompress(archive: bytes) -> None:
+    """Where one warm ``decompress`` spends its host time (cProfile, top
+    entries by cumulative time) and its CUDA time."""
+    import lrzip_next_tpu_torch as lrzt
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    prof.enable()
+    lrzt.decompress(archive, device="cuda")
+    prof.disable()
+    text = io.StringIO()
+    pstats.Stats(prof, stream=text).sort_stats("cumulative").print_stats(22)
+    log("profile of one warm decompress (cProfile, by cumulative time):")
+    for line in text.getvalue().splitlines():
+        if line.strip() and ("{" in line or ".py" in line
+                             or "function calls" in line):
+            log("  " + line.rstrip()[:150])
+    from lrzip_next_tpu_torch import runtime
+    from lrzip_next_tpu_torch.backends import BackendConfig, decompress_block
+    from lrzip_next_tpu_torch.format.container import ChunkReader, \
+        read_chunk_header
+    from lrzip_next_tpu_torch.format.magic import MagicHeader
+    from lrzip_next_tpu_torch.models import device_path as DP
+    # the one chunk's decode stages alone, each ended by a synchronise
+    fd = io.BytesIO(archive)
+    fd.seek(MagicHeader.decode(archive[:100]).header_len)
+    hdr = read_chunk_header(fd)
+    reader = ChunkReader(fd, hdr)
+    stream0 = b"".join(
+        decompress_block(reader.read_payload(r), r.c_type, r.u_len,
+                         BackendConfig()) for r in reader.blocks(0))
+    ref = list(reader.blocks(1))[0]
+    payload = reader.read_payload(ref)
+    dev = torch.device("cuda")
+
+    def stage(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    tokens, parse_ms = stage(lambda: runtime.parse_token_stream(
+        np.frombuffer(stream0, np.uint8), hdr.chunk_bytes)[:3])
+    plane, k7_ms = stage(lambda: DP.DeviceLitPlane(payload, ref.u_len, dev))
+    lay, plan_ms = stage(lambda: runtime.flatten_replay_layered(*tokens))
+    chunk, replay_ms = stage(lambda: DP.replay_tokens_device_array(
+        *tokens, plane.plane))
+    host, back_ms = stage(lambda: chunk.cpu().numpy().tobytes())
+    _, check_ms = stage(plane.check)
+    log(f"  the chunk's decode stages alone, host-clock ms, each "
+        f"synchronised: token parse {parse_ms:.3f}; literal block "
+        f"({len(payload)} payload bytes -> {plane.n} literals) parse + "
+        f"upload + K7 {k7_ms:.3f}; replay on the card {replay_ms:.3f}, of "
+        f"which the host's flatten alone {plan_ms:.3f} ("
+        + ("no layered plan" if lay is None else
+           f"{len(lay[0])} pieces, {lay[3]} layers")
+        + f"); read-back of {len(host)} bytes {back_ms:.3f}; final-state "
+        f"check {check_ms:.3f}")
+
+
+def phase_slice(corpus64: np.ndarray, pasted64: np.ndarray) -> dict:
     from lrzip_next_tpu_torch.ops import matcher
+    raw = corpus64.tobytes()
     zero_launches()
-    stats = compress_checked(corpus64, "rans", "64 MiB long-range")
+    archive, stats = compress_timed(raw, "rans", "64 MiB long-range")
     launches = read_launches()
-    require(all(v > 0 for v in launches.values()),
-            f"the rans path did not launch every kernel: {launches}")
+    require(all(launches[k] > 0 for k in ENCODE_KERNELS)
+            and not any(launches[k] for k in DECODE_KERNELS),
+            f"the rans compress did not launch K1-K6 alone: {launches}")
     require(all(s.get("literal_ms") for s in stats),
             "the rans path did not take the device literal encode")
-    for _ in range(2):
-        compress_checked(corpus64, "rans", "64 MiB long-range, warm")
+    pasted_raw = pasted64.tobytes()
+    pasted_archive, _ = compress_timed(pasted_raw, "rans",
+                                       "64 MiB pasted pieces")
+    # the decode path, driven once: both archives through decompress
     zero_launches()
-    compress_checked(corpus64, "lzma", "64 MiB long-range")
+    cold = decompress_timed(archive, raw, "64 MiB long-range rans, cold")
+    decode = read_launches()
+    log(f"launches of the long-range decompress: {decode}")
+    decompress_timed(pasted_archive, pasted_raw, "64 MiB pasted pieces rans")
+    decode = read_launches()
+    log(f"launches of both decompresses: {decode}")
+    require(decode["k7"] == 2 and decode["k8a"] >= 2
+            and decode["k8b"] >= 1 and decode["k8c"] >= 1
+            and not any(decode[k] for k in ENCODE_KERNELS),
+            f"the rans decompresses did not launch K7 and K8a-c alone: "
+            f"{decode}")
+    for k in DECODE_KERNELS:
+        launches[k] = decode[k]
+    del pasted_archive, pasted_raw
+    warm = []
+    for _ in range(2):
+        again, _ = compress_timed(raw, "rans", "64 MiB long-range, warm")
+        require(again == archive, "the rans archive changed between runs")
+        warm.append(decompress_timed(archive, raw,
+                                     "64 MiB long-range rans, warm"))
+    log(f"decompress of the 64 MiB rans archive on the card: cold "
+        f"{cold:.3f} s, warm {warm[0]:.3f} and {warm[1]:.3f} s")
+    profile_decompress(archive)
+    del archive
+
+    zero_launches()
+    lzma_archive, _ = compress_timed(raw, "lzma", "64 MiB long-range")
     lzma = read_launches()
     require(lzma["k1"] > 0 and lzma["k2"] > 0,
             f"the lzma path did not launch K1 and K2: {lzma}")
+    zero_launches()
+    decompress_timed(lzma_archive, raw, "64 MiB long-range lzma")
+    require(sum(read_launches().values()) == 0,
+            f"the lzma decompress launched a kernel: {read_launches()}")
+    del lzma_archive
     # the same chunk's matcher again, warm (allocator and modules loaded)
     runs = []
     for _ in range(3):
@@ -378,21 +775,24 @@ def phase_slice(corpus64: np.ndarray) -> dict:
         f" (sum {sum(med.values()):.3f}) | host finalize ms "
         f"{statistics.median(r['host_ms'] for r in runs):.3f}")
     walks = matcher.walk_fallbacks
-    compress_checked(word_soup_with_holes(16 * MIB), "gzip",
-                     "16 MiB word soup")
+    soup = word_soup_with_holes(16 * MIB).tobytes()
+    soup_archive, _ = compress_timed(soup, "gzip", "16 MiB word soup")
     require(matcher.walk_fallbacks > walks,
             "the word-soup text did not take the walk fallback")
+    decompress_timed(soup_archive, soup, "16 MiB word soup gzip")
     return launches
 
 
-def phase_card_equals_cpu() -> None:
+def phase_card_equals_cpu() -> bytes:
+    """Returns the 4 MiB skewed rans archive for the corruption phase."""
     import lrzip_next_tpu_torch as lrzt
     raw = mixed_corpus(8 * MIB).tobytes()
     s = lrzt.Settings(method="gzip")
     on_card = lrzt.compress(raw, s, device="cuda")
     on_cpu = lrzt.compress(raw, s, device="cpu")
     require(on_card == on_cpu, "8 MiB archive differs between cuda and cpu")
-    require(lrzt.decompress(on_card) == raw, "8 MiB round trip differs")
+    require(lrzt.decompress(on_card, device="cuda") == raw,
+            "8 MiB round trip differs")
     log(f"card equals cpu: 8 MiB mixed -> {len(on_card)} bytes, identical")
 
     raw = skewed_symbols(4 * MIB).tobytes()
@@ -408,9 +808,83 @@ def phase_card_equals_cpu() -> None:
     on_cpu = lrzt.compress(raw, lrzt.Settings(method="rans"), device="cpu")
     require(on_card == on_cpu, "4 MiB rans archive differs between cuda "
             "and cpu")
-    require(lrzt.decompress(on_card) == raw, "4 MiB rans round trip differs")
+    zero_launches()
+    require(lrzt.decompress(on_cpu, device="cuda") == raw,
+            "the card does not decode the CPU's 4 MiB rans archive")
+    require(read_launches()["k7"] == 1, "the card's decode launched no K7")
+    zero_launches()
+    require(lrzt.decompress(on_card, device="cpu") == raw,
+            "the CPU does not decode the card's 4 MiB rans archive")
+    require(read_launches()["k7"] == 0, "the CPU decode launched K7")
     log(f"card equals cpu: 4 MiB skewed (rans, {lit[0][2]} literals in "
-        f"{lit[0][1]} lanes) -> {len(on_card)} bytes, identical")
+        f"{lit[0][1]} lanes) -> {len(on_card)} bytes, identical; each "
+        f"device decodes the other's archive")
+
+    pasted = pasted_corpus(4 * MIB).tobytes()
+    p_card = lrzt.compress(pasted, lrzt.Settings(method="rans"),
+                           device="cuda")
+    p_cpu = lrzt.compress(pasted, lrzt.Settings(method="rans"), device="cpu")
+    require(p_card == p_cpu, "4 MiB pasted-pieces rans archive differs "
+            "between cuda and cpu")
+    zero_launches()
+    require(lrzt.decompress(p_cpu, device="cuda") == pasted,
+            "the card does not decode the CPU's pasted-pieces archive")
+    on = read_launches()
+    require(all(on[k] >= 1 for k in DECODE_KERNELS),
+            f"the card's layered decode did not launch K7 and K8a-c: {on}")
+    zero_launches()
+    require(lrzt.decompress(p_card, device="cpu") == pasted,
+            "the CPU does not decode the card's pasted-pieces archive")
+    require(sum(read_launches().values()) == 0,
+            "the CPU decode launched a kernel")
+    log(f"card equals cpu: 4 MiB pasted pieces (rans, layered replay) -> "
+        f"{len(p_card)} bytes, identical; each device decodes the other's "
+        f"archive; launches on the card {on}")
+    return on_card
+
+
+def must_raise(what: str, fn) -> None:
+    """``fn`` must raise ``ValueError``; returning anything fails."""
+    try:
+        fn()
+    except ValueError as exc:
+        torch.cuda.synchronize()
+        log(f"corrupt payload, {what}: ValueError({exc})")
+        return
+    raise SystemExit(f"chip_smoke: FAILED: {what}: no ValueError")
+
+
+def phase_corrupt(archive: bytes) -> None:
+    """Damaged rANS payloads on the card raise, and never return bytes."""
+    import lrzip_next_tpu_torch as lrzt
+    from lrzip_next_tpu_torch.models.device_path import DeviceLitPlane
+    from lrzip_next_tpu_torch.ops import rans
+    data = skewed_symbols(3 * MIB)
+    payload = rans.encode_block(data, 6, device="cuda")
+    require(rans.decode_block(payload, device="cuda") == data.tobytes(),
+            "the intact payload does not decode on the card")
+    hdr = list(rans._HDR.unpack_from(payload, 0))
+    nw = hdr[5]
+
+    flipped = bytearray(payload)
+    flipped[len(payload) - nw] ^= 0x20      # a word in the stream's middle
+    cut = hdr[:]
+    cut[5] = nw // 2                        # half the words, header agreeing
+    short = rans._HDR.pack(*cut) + payload[rans._HDR.size:len(payload) - 2 *
+                                           (nw - nw // 2)]
+    dev = torch.device("cuda")
+    for what, bad in (("one flipped word", bytes(flipped)),
+                      ("word count cut short", short)):
+        must_raise(f"{what}, decode_block",
+                   lambda: rans.decode_block(bad, device="cuda"))
+        must_raise(f"{what}, DeviceLitPlane.check",
+                   lambda: DeviceLitPlane(bad, len(data), dev).check())
+    # through the entry point: the literal block's words end the chunk,
+    # just before the 16-byte MD5
+    damaged = bytearray(archive)
+    damaged[len(archive) - 16 - 4_000] ^= 0x08
+    must_raise("one flipped byte in the archive's literal block, decompress",
+               lambda: lrzt.decompress(bytes(damaged), device="cuda"))
 
 
 def main() -> int:
@@ -419,11 +893,9 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
-    import lrzip_next_tpu_torch  # noqa: F401  (installs the zstd guard)
     card = phase_environment()
-    zstd = sys.modules.get("zstandard")
-    log("zstandard: " + ("missing (stub installed; zstd raises)"
-                         if getattr(zstd, "IS_STUB", False) else "imports"))
+    log("zstandard: " + ("imports" if importlib.util.find_spec("zstandard")
+                         else "missing (method zstd raises ValueError)"))
     from lrzip_next_tpu_torch.ops import matcher
     matcher.require_runtime()
     log(f"host runtime: available ({time.perf_counter() - t0:.3f} s "
@@ -431,9 +903,11 @@ def main() -> int:
 
     phase_build()
     corpus64 = long_range_corpus(64 * MIB)
-    kern = phase_kernels(corpus64)
-    launches = phase_slice(corpus64)
-    phase_card_equals_cpu()
+    pasted64 = pasted_corpus(64 * MIB)
+    kern = phase_kernels(corpus64, pasted64)
+    launches = phase_slice(corpus64, pasted64)
+    phase_corrupt(phase_card_equals_cpu())
+    log(f"all phases passed in {time.perf_counter() - t0:.3f} s")
 
     rows = [
         ("anchor_fps", "lrzip_next_tpu_torch/ops/csrc/anchor_fps.cu",
@@ -448,6 +922,14 @@ def main() -> int:
          "lrzip_next_tpu/ops/rans_pallas.py:281", "k5"),
         ("pack_plane", "lrzip_next_tpu_torch/ops/csrc/streampack.cu",
          "lrzip_next_tpu/ops/streampack.py:73", "k6"),
+        ("decode_scan", "lrzip_next_tpu_torch/ops/csrc/rans_decode.cu",
+         "lrzip_next_tpu/ops/rans_decode_pallas.py:308", "k7"),
+        ("ragged_concat", "lrzip_next_tpu_torch/ops/csrc/replay_ragged.cu",
+         "lrzip_next_tpu/ops/replay_ragged.py:274", "k8a"),
+        ("layered_pass", "lrzip_next_tpu_torch/ops/csrc/replay_ragged.cu",
+         "lrzip_next_tpu/ops/replay_ragged.py:481", "k8b"),
+        ("small_merge", "lrzip_next_tpu_torch/ops/csrc/replay_ragged.cu",
+         "lrzip_next_tpu/ops/replay_ragged.py:607", "k8c"),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -7,39 +7,45 @@ them are PyTorch (``ops/matcher.py``).  With ``method="rans"`` the
 chunk's literals are rANS-encoded on the GPU too
 (``models/device_path.py``): literal compaction and word compaction
 (``ops/streampack.py``), the sampled histogram and the encode scan
-(``ops/rans_kernels.py``) are CUDA C++ kernels.  Everything that holds
-no JAX - the ``.lrz`` container, the backend codecs and the native host
-runtime (``finalize_tokens``, ``greedy_cover``, ``rans_decode``) - is
-imported from ``lrzip_next_tpu`` and shared, not copied.
+(``ops/rans_kernels.py``) are CUDA C++ kernels.  ``decompress`` decodes
+such a chunk's literals on the GPU as well (the rANS decode scan, a CUDA
+C++ kernel) and replays the tokens on the host.
 
-The system has no learned parameters, and the port takes the very same
-``Settings`` dataclass and the same input bytes as ``lrzip_next_tpu``, so
-no state needs converting between the two packages.  For equal settings
-the port writes the same archive bytes as
-``lrzip_next_tpu.compress(data, Settings(..., use_tpu=True))``.
+The package stands alone: the ``.lrz`` container (``format/``), the
+backend codecs (``backends/``), the filters, the crypto layer and the
+native host runtime (``runtime/``: ``finalize_tokens``, ``greedy_cover``,
+``replay_tokens`` and the C++ codecs, built with g++ at first use) are
+its own copies of the host layers of ``lrzip_next_tpu``, and it imports
+nothing of that package.
+
+The system has no learned parameters; what the two packages must agree
+on is ``Settings``.  ``settings_from_reference`` turns the other
+package's settings object into the port's.  For equal settings the port
+writes the same archive bytes as
+``lrzip_next_tpu.compress(data, Settings(..., use_tpu=True))``, and each
+package decodes the other's archives.
 
 Quick API:
 
     import lrzip_next_tpu_torch as lrzt
     archive = lrzt.compress(data, lrzt.Settings(method="lzma"))  # on CUDA
-    assert lrzt.decompress(archive) == data
+    assert lrzt.decompress(archive) == data                      # on CUDA
 
-``compress`` takes ``device="cuda"`` by default and raises where CUDA is
-absent; ``device="cpu"`` runs the kernels' plain PyTorch versions.
+``compress`` and ``decompress`` take ``device="cuda"`` by default and
+raise where CUDA is absent; ``device="cpu"`` runs the kernels' plain
+PyTorch versions.
 """
 
-from .device import guard_zstandard
-
-guard_zstandard()
-
-from lrzip_next_tpu.models.pipeline import Settings, decompress  # noqa: E402
-
-from .models.pipeline import (  # noqa: E402
-    compress, compress_file, compress_stream)
+from .models.pipeline import (
+    Settings, compress, compress_file, compress_stream, decompress,
+    decompress_file, decompress_stream, decompress_stream_to,
+    iter_decompress, settings_from_reference)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Settings", "compress", "compress_file", "compress_stream",
-    "decompress", "__version__",
+    "decompress", "decompress_file", "decompress_stream",
+    "decompress_stream_to", "iter_decompress", "settings_from_reference",
+    "__version__",
 ]

@@ -1,20 +1,12 @@
-"""Device resolution and the optional-codec import guard.
+"""Device resolution.
 
 The port never moves work to another device by itself: asking for CUDA
-on a machine without it raises.  The guard lets the shared host layers
-(``lrzip_next_tpu.backends``) import on machines that lack the optional
-``zstandard`` package, which only the zstd backend needs.
+on a machine without it raises.
 """
 
 from __future__ import annotations
 
-import importlib.util
-import sys
-import types
-
 import torch
-
-_ZSTD_MISSING = "zstd backend needs the zstandard package"
 
 
 def resolve_device(device) -> torch.device:
@@ -31,24 +23,3 @@ def resolve_device(device) -> torch.device:
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev
 
-
-class _ZstdMissing:
-    def __init__(self, *args, **kwargs):
-        raise ValueError(_ZSTD_MISSING)
-
-
-def guard_zstandard() -> None:
-    """Install a stub ``zstandard`` module when the real one is absent.
-
-    ``lrzip_next_tpu.backends`` imports its zstd codec at module top; the
-    stub lets that import succeed, and any zstd call then raises
-    ``ValueError``."""
-    if "zstandard" in sys.modules or \
-            importlib.util.find_spec("zstandard") is not None:
-        return
-    stub = types.ModuleType("zstandard")
-    stub.ZstdError = type("ZstdError", (Exception,), {})
-    stub.ZstdCompressor = _ZstdMissing
-    stub.ZstdDecompressor = _ZstdMissing
-    stub.IS_STUB = True
-    sys.modules["zstandard"] = stub

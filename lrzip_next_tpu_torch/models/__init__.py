@@ -1,1 +1,1 @@
-"""Pipeline wiring of the port onto the shared archive pipeline."""
+"""The port's archive pipeline, device literal path and host models."""

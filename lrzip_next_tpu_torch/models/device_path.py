@@ -1,7 +1,8 @@
-"""Device literal encode: the chunk's literal stream never leaves the card.
+"""Device literal encode and decode of one chunk.
 
-Port of the encode half of ``lrzip_next_tpu/models/device_path.py``.
-The chunk already on the device (``MatchJob.dev``, padded to its bucket)
+Port of ``lrzip_next_tpu/models/device_path.py``.
+
+Encode: the chunk already on the device (``MatchJob.dev``, padded to its bucket)
 goes through
 
 1. the literal mask: +1 at every literal token's start, -1 past its
@@ -15,6 +16,20 @@ goes through
 lane states and the packed words, and assembles the ``CTYPE_RANS``
 payload on the host.  On CUDA, ``stage_ms`` holds CUDA-event
 milliseconds of each stage.
+
+Decode: ``DeviceLitPlane`` parses one ``CTYPE_RANS`` payload on the host
+(every malformed header, table or length raises ``ValueError``), uploads
+the words, the states and the table, and queues K7
+(``rans.decode_arrays``).  ``check()`` raises unless every final state is
+2^16; ``literals()`` reads the first ``n`` bytes of the plane back (the
+host path of a chunk whose tokens reach into earlier chunks).
+
+``replay_device`` builds the chunk on the device from the plane: the
+native runtime flattens the tokens into a piece plan on the host (a few
+records a token), and the ragged replay kernels of ``ops/replay_ragged``
+(K8a, K8c, and K8b for a layered plan) copy the pieces; the chunk is read
+back once.  Tokens that the runtime cannot flatten (byte-RLE chains) are
+resolved by pointer doubling in plain PyTorch (``ops/replay``).
 """
 
 from __future__ import annotations
@@ -24,8 +39,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import runtime
 from ..ops import rans
-from ..ops.matcher import StageClock
+from ..ops.matcher import StageClock, require_runtime
+from ..ops.replay import expand_tokens, resolve_bytes
+from ..ops.replay_ragged import replay_pieces_layered, replay_pieces_ragged
 from ..ops.streampack import pack_stream
 
 
@@ -95,3 +113,107 @@ class DeviceLiteralEncode:
             self.stage_ms = self.clock.ms()
         return rans.assemble_payload(*host, self.n_lit, self.ctx_bits,
                                      self.t_len)
+
+
+class DeviceLitPlane:
+    """The decoded literal plane of one rANS block, on ``device``."""
+
+    def __init__(self, payload: bytes, u_len: int, device):
+        n, ctx_bits, k, t_len, freqs, states, words = rans.parse_payload(
+            payload, u_len)
+        self.n = n
+        self.plane = None
+        if n == 0:
+            return
+        self.plane, self.xf = rans.decode_arrays(
+            *rans.upload(freqs, states, words, device), n, ctx_bits, k,
+            t_len)
+
+    def check(self) -> None:
+        if self.n and not rans.states_final(self.xf):
+            raise ValueError("corrupt rans stream (final state check)")
+
+    def literals(self) -> np.ndarray:
+        """Host copy of the ``n`` literal bytes (one read-back)."""
+        if self.plane is None:
+            return np.zeros(0, dtype=np.uint8)
+        return self.plane[:self.n].cpu().numpy()
+
+
+def _token_columns(kinds: np.ndarray, lengths: np.ndarray,
+                   dists: np.ndarray):
+    """(lengths, dists, is_match, literal lengths, reaches back) of a
+    chunk's tokens; the last is True when a match starts before the
+    chunk."""
+    lengths = np.asarray(lengths, dtype=np.int64)
+    d = np.asarray(dists, dtype=np.int64)
+    is_match = np.asarray(kinds) == 1
+    starts = np.cumsum(lengths) - lengths
+    reaches_back = bool((d[is_match] > starts[is_match]).any())
+    return lengths, d, is_match, np.where(is_match, 0, lengths), reaches_back
+
+
+def replay_device(kinds: np.ndarray, lengths: np.ndarray,
+                  dists: np.ndarray, plane: DeviceLitPlane, device
+                  ) -> Optional[bytes]:
+    """Token replay on ``device`` from the literal plane that lies there.
+
+    Returns the chunk bytes, or None when the tokens reach back before
+    the chunk (cross-chunk history lives on the host side).
+    """
+    lengths, d, is_match, lit_lens, reaches_back = _token_columns(
+        kinds, lengths, dists)
+    if int(lengths.sum()) == 0:
+        return b""
+    if reaches_back:
+        return None  # cross-chunk reach: host path owns history
+    if plane.n != int(lit_lens.sum()):
+        raise ValueError("literal stream length mismatch")
+    literals = plane.plane if plane.plane is not None \
+        else torch.zeros(1, dtype=torch.uint8, device=device)
+    res = _replay(kinds, lengths, d, is_match, lit_lens, literals
+                  ).cpu().numpy()
+    plane.check()
+    return res.tobytes()
+
+
+def replay_tokens_device_array(kinds: np.ndarray, lengths: np.ndarray,
+                               dists: np.ndarray, lit_dev: torch.Tensor
+                               ) -> Optional[torch.Tensor]:
+    """Token replay -> the uint8 chunk on ``lit_dev``'s device (or None
+    when a match reaches before the chunk)."""
+    lengths, d, is_match, lit_lens, reaches_back = _token_columns(
+        kinds, lengths, dists)
+    if int(lengths.sum()) == 0:
+        return torch.zeros(0, dtype=torch.uint8, device=lit_dev.device)
+    if reaches_back:
+        return None
+    if int(lit_dev.shape[0]) < int(lit_lens.sum()):
+        # a short literal plane would replay wrong bytes
+        raise ValueError("literal stream length mismatch")
+    return _replay(kinds, lengths, d, is_match, lit_lens, lit_dev)
+
+
+def _replay(kinds: np.ndarray, lengths: np.ndarray, d: np.ndarray,
+            is_match: np.ndarray, lit_lens: np.ndarray,
+            lit_dev: torch.Tensor) -> torch.Tensor:
+    """A layered piece plan first (matches whose expansion would multiply
+    the plan become copies of finished output, resolved in later passes),
+    then the flat plan, then pointer doubling."""
+    require_runtime()
+    out_len = int(lengths.sum())
+    lay = runtime.flatten_replay_layered(kinds, lengths, d)
+    if lay is not None:
+        pl_, ps_, py_, nl = lay
+        if nl == 0:
+            return replay_pieces_ragged(pl_, ps_, lit_dev, out_len)
+        return replay_pieces_layered(pl_, ps_, py_, nl, lit_dev, out_len)
+    flat = runtime.flatten_replay(kinds, lengths, d)
+    if flat is not None:
+        return replay_pieces_ragged(flat[0], flat[1], lit_dev, out_len)
+    dev = lit_dev.device
+    src, lit_idx = expand_tokens(
+        torch.from_numpy(lengths).to(dev),
+        torch.from_numpy(is_match).to(dev), torch.from_numpy(d).to(dev),
+        torch.from_numpy(np.cumsum(lit_lens) - lit_lens).to(dev))
+    return resolve_bytes(src, lit_idx, lit_dev)

@@ -28,15 +28,13 @@ float: coverage sums are exact integers.
 
 from __future__ import annotations
 
-import os
 import time
 
 import numpy as np
 import torch
 
-from lrzip_next_tpu import runtime
-from lrzip_next_tpu.format.constants import MINIMUM_MATCH
-
+from .. import runtime
+from ..format.constants import MINIMUM_MATCH
 from .anchor import HASH_W, INT32_MAX, anchor_fps
 from .compact import compact_starts3
 
@@ -51,9 +49,8 @@ walk_fallbacks = 0
 
 
 def default_anchor_stride(rzip_level: int) -> int:
-    """Anchor sampling stride for the 1-9 rzip level (a copy of
-    ``lrzip_next_tpu.ops.matcher.default_anchor_stride``, which cannot be
-    imported without JAX)."""
+    """Anchor sampling stride for the 1-9 rzip level (as
+    ``lrzip_next_tpu/ops/matcher.py`` ``default_anchor_stride``)."""
     if rzip_level >= 9:
         return 2
     if rzip_level == 8:
@@ -243,33 +240,13 @@ class StageClock:
                 in zip(self.marks, self.marks[1:])}
 
 
-def _built_library_current() -> bool:
-    """The shared runtime's library exists and is no older than any of
-    its sources: another process finished the build."""
-    if not os.path.exists(runtime._SO):
-        return False
-    built = os.path.getmtime(runtime._SO)
-    return all(built >= os.path.getmtime(s) for s in runtime._SRCS)
-
-
 def require_runtime() -> None:
-    """Raise unless the native host runtime is loaded.
-
-    ``lrzip_next_tpu.runtime`` builds its library at first use into one
-    fixed temporary name, so processes that start the build together
-    race: the one whose rename comes second finds the file gone and
-    marks the build failed for the rest of its life, although the other
-    process's library is in place.  That case - build marked failed, a
-    current library on disk - is retried once with a fresh load."""
-    if runtime.available():
-        return
-    if runtime._build_failed and _built_library_current():
-        runtime._build_failed = False
-        runtime._load()
+    """Raise unless the native host runtime is loaded."""
     if not runtime.available():
-        raise RuntimeError("the native host runtime (lrzip_next_tpu."
-                           "runtime, built with g++) is required for "
-                           "token finalization")
+        raise RuntimeError(
+            "the native host runtime (lrzip_next_tpu_torch.runtime, built "
+            "with g++) is required for token finalization and replay"
+            + (": " + runtime.build_error if runtime.build_error else ""))
 
 
 def _host(t: torch.Tensor) -> np.ndarray:

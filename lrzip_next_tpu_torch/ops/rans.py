@@ -1,6 +1,6 @@
-"""Interleaved-rANS literal encode on PyTorch: the device literal coder.
+"""Interleaved-rANS literal coder on PyTorch: the device literal codec.
 
-Port of the encode half of ``lrzip_next_tpu/ops/rans.py``.  A block of
+Port of ``lrzip_next_tpu/ops/rans.py``, encode and decode.  A block of
 ``n`` bytes, zero-padded to ``_bucket(n, K)``, is cut into K contiguous
 lane spans of ``T`` bytes (lane ``l`` holds bytes ``[l*T, (l+1)*T)``);
 the K rANS states advance together over span position ``t``, in reverse.
@@ -20,6 +20,13 @@ Only the table, the K states and the packed words are read back; the
 payload is assembled on the host in the ``CTYPE_RANS`` wire format,
 byte-identical to ``lrzip_next_tpu.ops.rans.encode_block``.
 
+Decode (``decode_arrays``, ``decode_block``) parses the payload on the
+host, uploads the words, the K states and the table, and runs K7
+(``rans_kernels.decode_scan``): T forward steps in which every lane
+finds its symbol by the slot ``x & 4095`` and the renormalising lanes
+take the next words of the stream in lane order.  All final states must
+equal 2^16, else the stream was corrupt.
+
 The kernels take the padded block as it lies in memory (lane-major), so
 no (T, K) transpose is built.  The TPU's bf16 one-hot table fetches and
 f32 divide fixups are not carried over: integer loads and exact integer
@@ -34,7 +41,8 @@ import zlib
 import numpy as np
 import torch
 
-from .rans_kernels import M, M_BITS, encode_scan, joint_histogram
+from .rans_kernels import L_INIT, M, M_BITS, decode_scan, encode_scan, \
+    joint_histogram
 from .streampack import pack_plane
 
 MAGIC = 1                     # payload version byte
@@ -162,3 +170,104 @@ def encode_block(data, ctx_bits: int = 6, device="cpu") -> bytes:
     freqs, states, packed, n_words, t_len = encode_arrays(lit, n, ctx_bits)
     return assemble_payload(*read_back(freqs, states, packed, n_words), n,
                             ctx_bits, t_len)
+
+
+# ---------------------------------------------------------------------------
+# decode
+
+
+def _unpack_table(blob: bytes, c_ctx: int) -> np.ndarray:
+    try:
+        raw = zlib.decompress(blob)
+    except zlib.error as e:
+        raise ValueError(f"corrupt rans frequency table: {e}") from e
+    if len(raw) % 3 or len(raw) // 3 * 2 != c_ctx * 256:
+        raise ValueError("corrupt rans frequency table (size)")
+    tri = np.frombuffer(raw, np.uint8).reshape(-1, 3)
+    a = tri[:, 0].astype(np.uint32) | ((tri[:, 1] & 0x0F).astype(
+        np.uint32) << 8)
+    b = (tri[:, 1] >> 4).astype(np.uint32) | (tri[:, 2].astype(
+        np.uint32) << 4)
+    f = np.empty(tri.shape[0] * 2, np.int32)
+    f[0::2] = a
+    f[1::2] = b
+    return f.reshape(c_ctx, 256)
+
+
+def parse_payload(payload: bytes, u_len=None):
+    """Header checks and host views of a ``CTYPE_RANS`` payload; with
+    ``u_len``, the stored length must equal it.
+
+    Returns (n, ctx_bits, K, T, freqs (C, 256) int32, states (K,) uint32,
+    words (n_words,) uint16); for ``n == 0`` everything after ``n`` is
+    None.  Raises ``ValueError`` on a malformed payload."""
+    if len(payload) < _HDR.size:
+        raise ValueError("rans payload truncated")
+    magic, ctx_bits, klog, _, n, nw, tlen, t_len = _HDR.unpack_from(
+        payload, 0)
+    if magic != MAGIC or ctx_bits not in (0, 4, 6, 8) or klog > 14:
+        raise ValueError("bad rans payload header")
+    if u_len is not None and n != u_len:
+        raise ValueError("rans payload length mismatch")
+    if n == 0:
+        return 0, ctx_bits, None, None, None, None, None
+    k = 1 << klog
+    # every encoder writes at least 64 lanes and spans no longer than the
+    # padded block's; a longer span would only size the decoded plane
+    if klog < 6 or t_len * k < n or \
+            t_len > min(_bucket(n, k) // k, 1 << 26):
+        raise ValueError("bad rans payload span length")
+    off = _HDR.size
+    freqs = _unpack_table(payload[off:off + tlen], 1 << ctx_bits)
+    off += tlen
+    if (freqs.sum(axis=1) != M).any() or (freqs < 1).any():
+        raise ValueError("corrupt rans frequency table")
+    states = np.frombuffer(payload[off:off + 4 * k], "<u4")
+    off += 4 * k
+    if states.shape[0] != k:
+        raise ValueError("rans payload truncated (states)")
+    words = np.frombuffer(payload[off:off + 2 * nw], "<u2")
+    if words.shape[0] != nw:
+        raise ValueError("rans payload truncated (words)")
+    return n, ctx_bits, k, t_len, freqs, states, words
+
+
+def decode_arrays(words: torch.Tensor, states: torch.Tensor,
+                  freqs: torch.Tensor, n: int, ctx_bits: int, k: int,
+                  t_len: int):
+    """Decode on the tensors' device -> ((K*T,) uint8 plane in block
+    order, final states (K,) int32 holding the uint32 bit patterns); the
+    caller slices ``[:n]``.  ``words`` is int16 holding the uint16 words,
+    ``states`` int32 holding the uint32 patterns, ``freqs`` (C, 256)
+    int32."""
+    if states.shape[0] != k:
+        raise ValueError(f"decode_arrays: {states.shape[0]} states for "
+                         f"{k} lanes")
+    return decode_scan(words, states, freqs, n, ctx_bits, t_len)
+
+
+def upload(freqs: np.ndarray, states: np.ndarray, words: np.ndarray,
+           device):
+    """Device tensors of a parsed payload, in ``decode_arrays``' types."""
+    return (torch.from_numpy(words.astype("<u2").view(np.int16)).to(device),
+            torch.from_numpy(states.astype("<u4").view(np.int32)).to(device),
+            torch.from_numpy(np.ascontiguousarray(freqs, np.int32)
+                             ).to(device))
+
+
+def states_final(xf: torch.Tensor) -> bool:
+    """True when every final state equals the initial 2^16."""
+    return bool((xf == L_INIT).all())
+
+
+def decode_block(payload: bytes, device="cpu") -> bytes:
+    """Payload bytes in, the block's bytes out, decoded on ``device``."""
+    n, ctx_bits, k, t_len, freqs, states, words = parse_payload(payload)
+    if n == 0:
+        return b""
+    plane, xf = decode_arrays(*upload(freqs, states, words, device), n,
+                              ctx_bits, k, t_len)
+    out = plane[:n].cpu().numpy()
+    if not states_final(xf):
+        raise ValueError("corrupt rans stream (final state check)")
+    return out.tobytes()

@@ -1,6 +1,7 @@
-"""K4 (sampled joint histogram) and K5 (rANS encode scan).
+"""K4 (sampled joint histogram), K5 (rANS encode scan) and K7 (rANS
+decode scan).
 
-Both take the padded literal block ``lit`` as it lies in memory: K lanes
+K4 and K5 take the padded literal block ``lit`` as it lies in memory: K lanes
 of ``T = len(lit) // K`` bytes each, lane ``l`` at ``lit[l*T : (l+1)*T]``
 (the JAX package's (T, K) plane is this buffer transposed).  Position
 ``(l, t)`` is real when ``l*T + t < n``; its context is
@@ -16,10 +17,22 @@ of ``T = len(lit) // K`` bytes each, lane ``l`` at ``lit[l*T : (l+1)*T]``
   Returns the final states (int32 holding the uint32 bit patterns) and a
   (T, K) int32 plane of ``word | flag << 16`` (``csrc/rans_encode.cu``).
 
+- ``decode_scan``: the K-lane rANS decode, run from ``t = 0`` up to
+  T-1 on the stream of 16-bit words in consumption order.  At a real
+  position the lane's slot ``x & 4095`` selects the symbol ``s`` with
+  ``cum[ctx][s] <= slot < cum[ctx][s+1]``; then
+  ``x = f * (x >> 12) + slot - cum``; a lane whose state fell below 2^16
+  takes one word, ``x = x << 16 | word``, and the lanes that do so in one
+  step take consecutive words in lane order.  A word past the end of the
+  stream reads as 0.  Returns the (K*T,) uint8 block (lane-major, 0 at
+  padding positions) and the final states (``csrc/rans_decode.cu``).
+
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 version.  Counterparts of ``lrzip_next_tpu/ops/rans_pallas.py``
-(``joint_histogram_pallas``, ``encode_scan_fused``) and of their XLA
-twins ``rans.joint_histogram`` and ``rans._encode_scan``.
+(``joint_histogram_pallas``, ``encode_scan_fused``) and
+``lrzip_next_tpu/ops/rans_decode_pallas.py`` (``decode_scan_fused``),
+and of their XLA twins ``rans.joint_histogram``, ``rans._encode_scan``
+and ``rans._decode_scan``.
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ _U32 = 0xFFFFFFFF
 
 hist_launches = 0
 encode_launches = 0
+decode_launches = 0
 
 
 def _lanes(lit: torch.Tensor, k: int) -> torch.Tensor:
@@ -158,3 +172,106 @@ def encode_scan(lit: torch.Tensor, n: int, freqs: torch.Tensor,
         _build.stream_ptr(lit.device)), "rans_encode")
     encode_launches += 1
     return states, plane
+
+
+def cum_table(freqs: torch.Tensor) -> torch.Tensor:
+    """(C, 256) frequencies -> (C, 257) int16 cumulative table: entry s
+    is the sum of the row's first s frequencies (the last is M), the
+    table K7 searches."""
+    cum = torch.cumsum(freqs.to(torch.int64), -1)
+    zero = torch.zeros_like(cum[:, :1])
+    return torch.cat([zero, cum], 1).to(torch.int16).contiguous()
+
+
+def decode_scan_reference(words: torch.Tensor, states: torch.Tensor,
+                          freqs: torch.Tensor, n: int, ctx_bits: int,
+                          t_len: int):
+    """Plain PyTorch K7: a Python loop over the T span positions on (K,)
+    vectors, uint32 values held in int64 and masked.  The symbol search
+    is one ``searchsorted`` in the table of all contexts laid end to end
+    (row c offset by c * M, so the whole table ascends)."""
+    dev = words.device
+    k = states.shape[0]
+    nw = words.shape[0]
+    # one zero behind the stream: every read past the end lands there
+    w = torch.cat([words.to(torch.int64) & 0xFFFF,
+                   torch.zeros(1, dtype=torch.int64, device=dev)])
+    f = freqs.to(torch.int64)
+    cum = torch.cumsum(f, -1) - f
+    c_ctx = f.shape[0]
+    flat = (cum + M * torch.arange(c_ctx, device=dev)[:, None]).reshape(-1)
+    f_flat = f.reshape(-1)
+    cum_flat = cum.reshape(-1)
+    base = torch.arange(k, device=dev) * t_len
+    x = states.to(torch.int64) & _U32
+    cq = torch.zeros(k, dtype=torch.int64, device=dev)
+    ptr = torch.zeros((), dtype=torch.int64, device=dev)
+    out = torch.zeros((k, t_len), dtype=torch.uint8, device=dev)
+    for t in range(t_len):
+        valid = base + t < n
+        slot = x & (M - 1)
+        pos = torch.searchsorted(flat, cq * M + slot, right=True) - 1
+        s = pos - cq * 256
+        x2 = (f_flat[pos] * (x >> M_BITS) + slot - cum_flat[pos]) & _U32
+        e = valid & (x2 < L_INIT)
+        ei = e.to(torch.int64)
+        rank = torch.cumsum(ei, 0) - ei
+        word = w[torch.clamp(ptr + rank, max=nw)]
+        x3 = torch.where(e, ((x2 << 16) | word) & _U32, x2)
+        x = torch.where(valid, x3, x)
+        if ctx_bits:
+            cq = torch.where(valid, s >> (8 - ctx_bits), cq)
+        ptr = ptr + ei.sum()
+        out[:, t] = torch.where(valid, s, 0).to(torch.uint8)
+    return out.reshape(-1), _to_i32(x)
+
+
+def decode_scan(words: torch.Tensor, states: torch.Tensor,
+                freqs: torch.Tensor, n: int, ctx_bits: int, t_len: int):
+    """K7 on the tensors' own device (see the module docstring).
+
+    ``words``: (n_words,) int16 holding the uint16 words; ``states``:
+    (K,) int32 holding the uint32 states, K a power of two from 64 to
+    16384; ``freqs``: (C, 256) int32, every row summing to 4096 with
+    every entry >= 1 (the caller checks: a row that does not is searched
+    all the same, without a read outside the table)."""
+    global decode_launches
+    k = states.shape[0]
+    c = 1 << ctx_bits if ctx_bits in (0, 4, 6, 8) else -1
+    if c < 0:
+        raise ValueError(f"decode_scan: ctx_bits {ctx_bits} not in 0/4/6/8")
+    if words.dtype != torch.int16 or words.dim() != 1:
+        raise TypeError(f"decode_scan: words must be 1-D int16, got "
+                        f"{words.dtype} {tuple(words.shape)}")
+    if states.dtype != torch.int32 or states.dim() != 1:
+        raise TypeError(f"decode_scan: states must be 1-D int32, got "
+                        f"{states.dtype} {tuple(states.shape)}")
+    if freqs.dtype != torch.int32 or tuple(freqs.shape) != (c, 256):
+        raise TypeError(f"decode_scan: freqs must be int32 ({c}, 256), got "
+                        f"{freqs.dtype} {tuple(freqs.shape)}")
+    if k < 64 or k > 16384 or k & (k - 1):
+        raise ValueError(f"decode_scan: {k} lanes, not a power of two in "
+                         "64..16384")
+    if t_len < 1 or n < 0 or n > k * t_len:
+        raise ValueError(f"decode_scan: n {n} does not fit {k} lanes of "
+                         f"{t_len}")
+    if not (words.device == states.device == freqs.device):
+        raise ValueError("decode_scan: tensors on different devices")
+    if words.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"decode_scan: unsupported device {words.device}")
+    if not (words.is_contiguous() and states.is_contiguous()
+            and freqs.is_contiguous()):
+        raise ValueError("decode_scan needs contiguous tensors")
+    if words.device.type == "cpu":
+        return decode_scan_reference(words, states, freqs, n, ctx_bits,
+                                     t_len)
+    cum = cum_table(freqs)
+    plane = torch.empty(k * t_len, dtype=torch.uint8, device=words.device)
+    xf = torch.empty(k, dtype=torch.int32, device=words.device)
+    lib = _build.library()
+    _build.check(lib.lrzt_rans_decode(
+        words.data_ptr(), words.shape[0], states.data_ptr(), cum.data_ptr(),
+        n, ctx_bits, t_len, k, plane.data_ptr(), xf.data_ptr(),
+        _build.stream_ptr(words.device)), "rans_decode")
+    decode_launches += 1
+    return plane, xf

@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
 Marked ``cuda``; every test skips where ``torch.cuda.is_available()`` is
-False.  This file imports no JAX, so on a machine without it run:
+False.  This file imports neither JAX nor the JAX package, but
+``tests/conftest.py`` imports JAX, so on a machine without it run:
 
-    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
 import numpy as np
@@ -15,7 +16,9 @@ from lrzip_next_tpu_torch.ops import anchor as A
 from lrzip_next_tpu_torch.ops import compact as C
 from lrzip_next_tpu_torch.ops import matcher as PM
 from lrzip_next_tpu_torch.ops import rans as R
+from lrzip_next_tpu_torch.models import device_path as DP
 from lrzip_next_tpu_torch.ops import rans_kernels as RK
+from lrzip_next_tpu_torch.ops import replay_ragged as RR
 from lrzip_next_tpu_torch.ops import streampack as SP
 
 pytestmark = pytest.mark.cuda
@@ -186,3 +189,311 @@ def test_compress_rans_card_equals_cpu(cuda):
     assert all(a == b + 1 for a, b in zip(after, before))
     assert archive == lrzt.compress(data, s, device="cpu")
     assert lrzt.decompress(archive) == data
+
+
+# --- K7: the rANS decode scan ------------------------------------------------
+
+
+def _encoded(rng, t: int, k: int, n: int, ctx_bits: int, cuda):
+    """A lane-major block of t*k bytes (n real) encoded on the card with a
+    forced lane count: (lit, freqs, states, words)."""
+    block = _lane_block(rng, t, k)
+    block[n:] = 0
+    lit = torch.from_numpy(block).to(cuda)
+    freqs = R.quantize_freqs(RK.joint_histogram_reference(
+        lit, n, ctx_bits, 1, k))
+    states, plane = RK.encode_scan(lit, n, freqs, ctx_bits, k)
+    packed, n_words = SP.pack_plane(plane, t * k)
+    return lit, freqs, states, packed[:int(n_words)].contiguous()
+
+
+def _k7_equals_plain(words, states, freqs, n, ctx_bits, t):
+    before = RK.decode_launches
+    plane, xf = RK.decode_scan(words, states, freqs, n, ctx_bits, t)
+    torch.cuda.synchronize()
+    assert RK.decode_launches == before + 1
+    ref_plane, ref_xf = RK.decode_scan_reference(words, states, freqs, n,
+                                                 ctx_bits, t)
+    assert torch.equal(plane, ref_plane)
+    assert torch.equal(xf, ref_xf)
+    return plane, xf
+
+
+@pytest.mark.parametrize("t,k", [(1, 64), (1, 16384), (33, 64), (8, 1024),
+                                 (7, 2048), (12, 4096), (5, 8192),
+                                 (20, 16384)])
+@pytest.mark.parametrize("ctx_bits", [0, 4, 6, 8])
+def test_k7_kernel_equals_plain(cuda, ctx_bits, t, k):
+    """Every lanes-per-thread variant (K = 64 .. 16384), T = 1, T a
+    multiple of 4 (word stores) and not (byte stores), n full, one short
+    and with whole lanes of padding."""
+    rng = np.random.default_rng(ctx_bits * 11 + t + k)
+    for n in (t * k, t * k - 1, max(t * k // 3, 1), 1):
+        lit, freqs, states, words = _encoded(rng, t, k, n, ctx_bits, cuda)
+        plane, xf = _k7_equals_plain(words, states, freqs, n, ctx_bits, t)
+        assert torch.equal(plane[:n], lit[:n])
+        assert not plane[n:].any()
+        assert bool((xf == RK.L_INIT).all())
+
+
+def _random_table(rng, ctx_bits: int, cuda) -> torch.Tensor:
+    counts = rng.integers(0, 500, (1 << ctx_bits, 256)) ** 2
+    return R.quantize_freqs(torch.from_numpy(counts.astype(np.int32))
+                            ).to(cuda)
+
+
+@pytest.mark.parametrize("k", [64, 16384])
+@pytest.mark.parametrize("kind", ["all_renormalise", "none_renormalises",
+                                  "random_states", "stream_ends_early",
+                                  "empty_stream"])
+def test_k7_kernel_equals_plain_on_arbitrary_states(cuda, kind, k):
+    """States and words that no encoder wrote: the kernel still follows
+    the plain version bit for bit, and never reads past the stream."""
+    rng = np.random.default_rng(k + len(kind))
+    t, ctx_bits = 6, 6
+    n = t * k - 3
+    lo, hi = {"all_renormalise": (1 << 16, (1 << 16) + 4096),
+              "none_renormalises": (1 << 31, 1 << 32)}.get(
+                  kind, (1 << 16, 1 << 32))
+    states = torch.from_numpy(rng.integers(lo, hi, k, dtype=np.int64)
+                              .astype(np.uint32).view(np.int32)).to(cuda)
+    if kind == "all_renormalise":   # f = 16 everywhere: x2 < 2^16 at t = 0
+        freqs = torch.full((64, 256), 16, dtype=torch.int32, device=cuda)
+    else:
+        freqs = _random_table(rng, ctx_bits, cuda)
+    n_words = {"stream_ends_early": k // 2, "empty_stream": 0}.get(
+        kind, t * k)
+    words = torch.from_numpy(rng.integers(0, 1 << 16, n_words, dtype=np.int64)
+                             .astype(np.uint16).view(np.int16)).to(cuda)
+    plane, xf = _k7_equals_plain(words, states, freqs, n, ctx_bits, t)
+    assert not plane[n:].any()
+    if kind == "none_renormalises":
+        _, one = RK.decode_scan(words, states, freqs, k, ctx_bits, 1)
+        _, other = RK.decode_scan(words[:0], states, freqs, k, ctx_bits, 1)
+        assert torch.equal(one, other)      # step 0 took no word
+
+
+def test_k7_wrapper_raises_on_cuda_tensors_it_does_not_take(cuda):
+    words = torch.zeros(8, dtype=torch.int16, device=cuda)
+    states = torch.full((64,), 1 << 16, dtype=torch.int32, device=cuda)
+    freqs = torch.full((64, 256), 16, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        RK.decode_scan(words, states[:32], freqs, 32, 6, 1)
+    with pytest.raises(ValueError):
+        RK.decode_scan(words.cpu(), states, freqs, 64, 6, 1)
+    with pytest.raises(TypeError):
+        RK.decode_scan(words, states, freqs.to(torch.int64), 64, 6, 1)
+
+
+@pytest.mark.parametrize("ctx_bits", [0, 4, 6, 8])
+@pytest.mark.parametrize("n", [1, 70_001, 2_200_000])
+def test_decode_block_card_equals_cpu(cuda, ctx_bits, n):
+    rng = np.random.default_rng(ctx_bits + n)
+    data = rng.integers(0, 40, n, dtype=np.uint8)
+    payload = R.encode_block(data, ctx_bits, device=cuda)
+    assert R.decode_block(payload, device=cuda) == data.tobytes()
+    assert R.decode_block(payload, device="cpu") == data.tobytes()
+    bad = bytearray(payload)
+    bad[-1] ^= 0x01
+    with pytest.raises(ValueError):
+        R.decode_block(bytes(bad), device=cuda)
+
+
+def test_decompress_rans_card_equals_cpu(cuda):
+    rng = np.random.default_rng(6)
+    skewed = rng.integers(0, 40, 300_000, dtype=np.uint8).tobytes()
+    data = skewed + _repeating(400_000, 7).tobytes() + skewed[:100_000]
+    s = lrzt.Settings(method="rans", max_chunk=300_000)
+    archive = lrzt.compress(data, s, device="cpu")
+    before = RK.decode_launches
+    assert lrzt.decompress(archive, device=cuda) == data
+    assert RK.decode_launches > before
+    assert lrzt.decompress(archive, device="cpu") == data
+
+
+# --- K8a, K8b, K8c: the ragged replay ---------------------------------------
+
+
+def _random_plan(rng, out_len, lit_len, mode):
+    """Piece lengths covering [0, out_len) and their literal sources."""
+    lens = []
+    left = out_len
+    while left > 0:
+        hi = {"tiny": 8, "short": RR.SHORT_LEN + 1, "big": 30_000}.get(
+            mode, int(rng.choice([16, 1500, 20_000])))
+        lo = {"big": RR.SHORT_LEN + 1}.get(mode, 1)
+        n = min(int(rng.integers(lo, hi)), left)
+        lens.append(n)
+        left -= n
+    lens = np.asarray(lens, np.int64)
+    srcs = rng.integers(0, lit_len - lens + 1)
+    return lens, srcs.astype(np.int64)
+
+
+@pytest.mark.parametrize("mode", ["mixed", "tiny", "short", "big"])
+@pytest.mark.parametrize("out_len", [1, 777, 8192, 8193, 300_000])
+def test_k8a_k8c_kernels_equal_plain(cuda, mode, out_len):
+    """A flat plan on the card against the same plan on the CPU (the plain
+    versions) and against numpy slicing, at every misalignment of source
+    against destination; K8a launches once, K8c when a piece is short."""
+    rng = np.random.default_rng(out_len + len(mode))
+    lit_len = out_len + 40_000
+    lit = rng.integers(0, 256, lit_len, dtype=np.uint8)
+    lens, srcs = _random_plan(rng, out_len, lit_len, mode)
+    before = (RR.ragged_launches, RR.small_launches, RR.layered_launches)
+    got = RR.replay_pieces_ragged(lens, srcs, torch.from_numpy(lit).to(cuda),
+                                  out_len)
+    torch.cuda.synchronize()
+    merged = RR.merge_contiguous(lens, srcs)[0]
+    assert RR.ragged_launches == before[0] + 1
+    assert RR.small_launches == before[1] + int(
+        (merged <= RR.SHORT_LEN).any())
+    assert RR.layered_launches == before[2]
+    want = np.concatenate([lit[s:s + n] for s, n in zip(srcs, lens)])
+    assert np.array_equal(got.cpu().numpy(), want)
+    ref = RR.replay_pieces_ragged(lens, srcs, torch.from_numpy(lit), out_len)
+    assert torch.equal(got.cpu(), ref)
+
+
+def _tables(rng, out_len, lit_len, mode, cell_bits, cuda):
+    lens, srcs = _random_plan(rng, out_len, lit_len, mode)
+    dst = np.cumsum(lens) - lens
+    ncells = -(-out_len >> cell_bits)
+    frags, lo = RR.plan_frags(*(torch.from_numpy(a).to(cuda) for a in
+                                (dst, srcs, lens)), ncells, cell_bits)
+    return frags, lo, RR.touched_ranges(lo), ncells
+
+
+@pytest.mark.parametrize("mode", ["mixed", "big"])
+def test_k8a_wrapper_equals_its_plain_version(cuda, mode):
+    rng = np.random.default_rng(len(mode))
+    lit = torch.from_numpy(rng.integers(0, 256, 90_000, dtype=np.uint8)
+                           ).to(cuda)
+    frags, lo, _, ncells = _tables(rng, 70_000, 90_000, mode, RR.CELL_BITS,
+                                   cuda)
+    out = RR.ragged_concat(lit, frags, lo, ncells)
+    torch.cuda.synchronize()
+    assert torch.equal(out, RR.ragged_concat_reference(lit, frags, lo,
+                                                       ncells))
+    assert out.shape[0] == ncells * RR.CELL and not out[70_000:].any()
+
+
+def test_k8_kernels_never_leave_their_tensors(cuda):
+    """Tables that no planner wrote: sources and destinations outside the
+    tensors, lengths past a cell, ranges past the table.  K8a reads 0
+    outside the plane, K8b and K8c skip the fragment, as the plain
+    versions do, and the bytes around the tensors stay untouched."""
+    lit_all = torch.arange(0, 4096, dtype=torch.int32).to(torch.uint8).to(cuda)
+    lit = lit_all[1024:3072]            # guarded on both sides
+    rows = [[0, 100, 200, 9000, 8000, -5, 300],
+            [2040, -3, 5, 0, 10, 0, 1 << 40],
+            [20, 10, 9000, 50, 300, 5, 8]]
+    frags = torch.tensor(rows, dtype=torch.int64, device=cuda)
+    lo = torch.tensor([0, 3, 99], dtype=torch.int64, device=cuda)
+    out = RR.ragged_concat(lit, frags, lo, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(out, RR.ragged_concat_reference(lit, frags, lo, 2))
+    assert out[:8].tolist() == lit[2040:2048].tolist()
+    assert out[8:20].tolist() == [0] * 12
+    buf_all = torch.zeros(3 * 8192, dtype=torch.uint8, device=cuda)
+    buf = buf_all[8192:16384]
+    plain = torch.zeros(8192, dtype=torch.uint8, device=cuda)
+    RR.small_merge(buf, lit, frags, lo)
+    torch.cuda.synchronize()
+    RR.small_merge_reference(plain, lit, frags, lo)
+    assert torch.equal(buf, plain)
+    assert not buf_all[:8192].any() and not buf_all[16384:].any()
+    seq = torch.arange(0, 3 * 8192, dtype=torch.int32).to(torch.uint8).to(cuda)
+    mine, plain = seq.clone(), seq.clone()
+    lay = torch.tensor([[9000, 8192 * 3 - 4, 100], [10, 0, 8192 * 3 - 50],
+                        [64, 8, 51]], dtype=torch.int64, device=cuda)
+    lo2 = torch.tensor([0, 3], dtype=torch.int64, device=cuda)
+    RR.layered_pass(mine[8192:16384], lay, lo2)
+    torch.cuda.synchronize()
+    RR.layered_pass_reference(plain[8192:16384], lay, lo2)
+    assert torch.equal(mine, plain)
+    assert torch.equal(mine[:8192], seq[:8192])
+    assert torch.equal(mine[16384:], seq[16384:])
+
+
+def _pasted(total, seed):
+    """Short pieces of a skewed i.i.d. base pasted in random order, then
+    copies of that region and of its copies: a layered replay plan."""
+    rng = np.random.default_rng(seed)
+    part = total // 4
+    law = 1.0 / np.arange(1, 257) ** 1.2
+    base = rng.choice(256, part, p=law / law.sum()).astype(np.uint8)
+    lens = rng.integers(40, 400, part // 200)
+    lens = lens[np.cumsum(lens) <= part]
+    starts = rng.integers(0, part - 400, len(lens))
+    idx = np.repeat(starts - (np.cumsum(lens) - lens), lens) + \
+        np.arange(int(lens.sum()))
+    frag = base[idx]
+    return np.concatenate([base, frag, frag, frag[len(frag) // 3:], base,
+                           frag])[:total]
+
+
+@pytest.mark.parametrize("total", [1 << 20, 3_000_001])
+def test_k8b_layered_replay_card_equals_cpu(cuda, total):
+    from lrzip_next_tpu_torch import runtime
+    from lrzip_next_tpu_torch.format.tokens import split_long_runs
+    data = _pasted(total, total)
+    kinds, lens, dists = split_long_runs(
+        *PM.rzip_encode_chunk(data, 8, torch.device("cpu")))
+    lay = runtime.flatten_replay_layered(kinds, lens, dists)
+    assert lay is not None and lay[3] >= 1
+    ends = np.cumsum(lens)
+    lit = np.concatenate([data[e - n:e] for k, n, e in
+                          zip(kinds, lens, ends) if k == 0])
+    before = (RR.ragged_launches, RR.layered_launches)
+    out = DP.replay_tokens_device_array(kinds, lens, dists,
+                                        torch.from_numpy(lit).to(cuda))
+    torch.cuda.synchronize()
+    assert RR.ragged_launches == before[0] + 1
+    assert 1 <= RR.layered_launches - before[1] <= lay[3]
+    assert np.array_equal(out.cpu().numpy(), data)
+    ref = DP.replay_tokens_device_array(kinds, lens, dists,
+                                        torch.from_numpy(lit))
+    assert torch.equal(out.cpu(), ref)
+
+
+def test_byte_rle_pointer_doubling_on_the_card(cuda):
+    kinds = np.array([0, 1, 0, 1], np.uint8)
+    lens = np.array([3, 200_000, 5, 40], np.int64)
+    dists = np.array([0, 1, 0, 7], np.int64)
+    lit = torch.tensor([9, 8, 7, 1, 2, 3, 4, 5], dtype=torch.uint8)
+    before = RR.ragged_launches
+    out = DP.replay_tokens_device_array(kinds, lens, dists, lit.to(cuda))
+    assert RR.ragged_launches == before     # no piece plan, no kernel
+    assert torch.equal(out.cpu(), DP.replay_tokens_device_array(
+        kinds, lens, dists, lit))
+
+
+def test_k8_wrappers_raise_on_cuda_tensors_they_do_not_take(cuda):
+    lit = torch.zeros(64, dtype=torch.uint8, device=cuda)
+    frags = torch.tensor([[0], [0], [4]], dtype=torch.int64, device=cuda)
+    lo = torch.tensor([0, 1], dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        RR.ragged_concat(lit, frags.cpu(), lo, 1)
+    with pytest.raises(ValueError):
+        RR.ragged_concat(lit, frags, lo, 2)
+    with pytest.raises(TypeError):
+        RR.layered_pass(lit, frags.to(torch.int32), lo)
+    with pytest.raises(ValueError):
+        RR.small_merge(lit, lit[::2], frags, lo)
+
+
+def test_decompress_layered_card_equals_cpu(cuda):
+    data = _pasted(2 << 20, 9).tobytes()
+    s = lrzt.Settings(method="rans")
+    archive = lrzt.compress(data, s, device=cuda)
+    assert archive == lrzt.compress(data, s, device="cpu")
+    before = (RK.decode_launches, RR.ragged_launches, RR.small_launches,
+              RR.layered_launches)
+    assert lrzt.decompress(archive, device=cuda) == data
+    after = (RK.decode_launches, RR.ragged_launches, RR.small_launches,
+             RR.layered_launches)
+    assert all(a > b for a, b in zip(after, before))
+    assert lrzt.decompress(archive, device="cpu") == data
+    assert after == (RK.decode_launches, RR.ragged_launches,
+                     RR.small_launches, RR.layered_launches)

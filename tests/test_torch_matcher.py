@@ -151,20 +151,24 @@ def test_stride_one_not_ported():
 
 
 def _runtime_state():
-    from lrzip_next_tpu import runtime
+    from lrzip_next_tpu_torch import runtime
     return runtime, (runtime._lib, runtime._build_failed, runtime._SO)
 
 
-def test_runtime_guard_reloads_after_lost_build_race():
-    """A process whose library build lost the rename race to another
-    process marks the build failed though a current library is on disk;
-    the port's guard loads it again."""
+def test_runtime_guard_reloads_after_lost_build_race(monkeypatch):
+    """The port's runtime builds through a per-process temporary, so no
+    build can lose its file to another; a process that comes second
+    finds the current library on disk and loads it without building."""
     runtime, saved = _runtime_state()
     PM.require_runtime()
+
+    def no_build(*a, **kw):
+        raise AssertionError("a current library must not be rebuilt")
+
     try:
         runtime._lib = None
-        runtime._build_failed = True
-        assert not runtime.available()
+        runtime._build_failed = False
+        monkeypatch.setattr(runtime, "_build", no_build)
         PM.require_runtime()
         assert runtime.available()
         assert runtime._lib is not None and not runtime._build_failed
@@ -176,12 +180,12 @@ def test_runtime_guard_reloads_after_lost_build_race():
 def test_runtime_guard_raises_without_a_library(tmp_path, library):
     runtime, saved = _runtime_state()
     PM.require_runtime()
-    so = tmp_path / "_hostops.so"
+    so = tmp_path / "liblrzt_hostops.so"
     if library == "garbage":
         so.write_bytes(b"not a shared library")
     try:
         runtime._lib = None
-        runtime._build_failed = True
+        runtime._build_failed = library == "missing"
         runtime._SO = str(so)
         with pytest.raises(RuntimeError, match="native host runtime"):
             PM.require_runtime()

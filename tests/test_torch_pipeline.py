@@ -1,9 +1,10 @@
 """End to end: lrzip_next_tpu_torch.compress on the CPU writes the same
 archive bytes as lrzip_next_tpu.compress with use_tpu=True, and the port
-starts no JAX."""
+imports neither JAX nor the JAX package."""
 
 import io
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -20,15 +21,23 @@ from lrzip_next_tpu.models.info import get_fileinfo
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _jax_settings(**kw) -> lrz.Settings:
+    return lrz.Settings(use_tpu=True, use_mesh=False, **kw)
+
+
 def _jax_archive(data: bytes, **kw) -> bytes:
-    return lrz.compress(data, lrz.Settings(use_tpu=True, use_mesh=False,
-                                           **kw))
+    return lrz.compress(data, _jax_settings(**kw))
 
 
 def _same_archive(data: bytes, **kw) -> bytes:
-    ours = lrzt.compress(data, lrzt.Settings(**kw), device="cpu")
-    assert ours == _jax_archive(data, **kw)
+    """One JAX ``Settings`` per case; the port computes from its
+    conversion, so both run the same configuration."""
+    js = _jax_settings(**kw)
+    ours = lrzt.compress(data, lrzt.settings_from_reference(js),
+                         device="cpu")
+    assert ours == lrz.compress(data, js)
     assert lrz.decompress(ours) == data
+    assert lrzt.decompress(ours, device="cpu") == data
     return ours
 
 
@@ -105,6 +114,8 @@ def test_rans_with_filter_takes_host_literal_coder(corpus_factory):
 
 
 def test_port_imports_no_jax(tmp_path):
+    """A fresh process that compresses and decompresses on the CPU holds
+    neither JAX nor any module of the JAX package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -114,22 +125,19 @@ def test_port_imports_no_jax(tmp_path):
         data = base + base[:40_000] + base
         archive = lrzt.compress(data, lrzt.Settings(method="gzip"),
                                 device="cpu")
-        assert lrzt.decompress(archive) == data
+        assert lrzt.decompress(archive, device="cpu") == data
         assert len(archive) < len(data) // 2
         p = rng.random(256) ** 8
         skewed = rng.choice(256, 300_000, p=p / p.sum()).astype(np.uint8)
         text = (skewed.tobytes() + base)[:350_000]
         archive = lrzt.compress(text, lrzt.Settings(method="rans"),
                                 device="cpu")
-        assert lrzt.decompress(archive) == text
+        assert lrzt.decompress(archive, device="cpu") == text
+        from lrzip_next_tpu_torch.ops import rans_kernels
+        assert rans_kernels.decode_launches == 0
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
-               or m.startswith("lrzip_next_tpu.ops.matcher")
-               or m.startswith("lrzip_next_tpu.ops.anchor_pallas")
-               or m.startswith("lrzip_next_tpu.ops.compact_pallas")
-               or m.startswith("lrzip_next_tpu.ops.rans")
-               or m.startswith("lrzip_next_tpu.ops.rans_pallas")
-               or m.startswith("lrzip_next_tpu.ops.streampack")
-               or m.startswith("lrzip_next_tpu.models.device_path")]
+               or m == "jaxlib" or m.startswith("jaxlib.")
+               or m == "lrzip_next_tpu" or m.startswith("lrzip_next_tpu.")]
         assert not bad, bad
         print("ok")
     """)
@@ -139,6 +147,47 @@ def test_port_imports_no_jax(tmp_path):
                          timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+_IMPORTS_JAX_PACKAGE = re.compile(
+    r"^\s*(import|from)\s+(lrzip_next_tpu|jax|jaxlib)(\.|\s|$)", re.M)
+
+
+def _port_sources() -> list:
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for folder, _, names in os.walk(os.path.join(ROOT,
+                                                 "lrzip_next_tpu_torch")):
+        files += [os.path.join(folder, n) for n in names
+                  if n.endswith(".py")]
+    return sorted(files)
+
+
+def test_port_sources_name_no_jax_import():
+    """No file of the port, nor chip_smoke.py, imports ``lrzip_next_tpu``
+    or JAX (``lrzip_next_tpu_torch`` starts with the same letters and is
+    not meant)."""
+    files = _port_sources()
+    assert len(files) > 40
+    bad = []
+    for path in files:
+        with open(path) as fh:
+            for m in _IMPORTS_JAX_PACKAGE.finditer(fh.read()):
+                bad.append((os.path.relpath(path, ROOT), m.group(0).strip()))
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("line,hit", [
+    ("import lrzip_next_tpu", True),
+    ("from lrzip_next_tpu import runtime", True),
+    ("    from lrzip_next_tpu.ops import rans", True),
+    ("import lrzip_next_tpu.models.pipeline as p", True),
+    ("import jax.numpy as jnp", True),
+    ("import lrzip_next_tpu_torch as lrzt", False),
+    ("from lrzip_next_tpu_torch.ops import rans", False),
+    ("# port of lrzip_next_tpu/ops/rans.py", False),
+])
+def test_import_scan_pattern(line, hit):
+    assert bool(_IMPORTS_JAX_PACKAGE.search(line)) == hit
 
 
 # --- method="rans": the device literal encode ------------------------------
@@ -251,16 +300,16 @@ def test_chunk_leaves_no_device_buffer(corpus_factory, monkeypatch, method):
 
 @pytest.mark.parametrize("size", [0, 1, 31])
 def test_trivial_input_needs_no_runtime(size):
-    """Inputs too small for the matcher never load the native runtime,
-    as in lrzip_next_tpu."""
-    from lrzip_next_tpu import runtime
+    """Inputs too small for the matcher never load the port's native
+    runtime, as in lrzip_next_tpu."""
+    from lrzip_next_tpu_torch import runtime
     data = _zipf(size, size)
     want = _jax_archive(data, method="gzip")
     saved = (runtime._lib, runtime._build_failed, runtime._SO)
     try:
         runtime._lib = None
         runtime._build_failed = True
-        runtime._SO = os.path.join(ROOT, "no-such-dir", "_hostops.so")
+        runtime._SO = os.path.join(ROOT, "no-such-dir", "none.so")
         assert not runtime.available()
         got = lrzt.compress(data, lrzt.Settings(method="gzip"),
                             device="cpu")

@@ -10,9 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from lrzip_next_tpu import runtime
 from lrzip_next_tpu.ops import rans as jrans
 from lrzip_next_tpu.ops import rans_pallas
+from lrzip_next_tpu_torch import runtime
 from lrzip_next_tpu_torch.ops import rans as R
 from lrzip_next_tpu_torch.ops import rans_kernels as RK
 
