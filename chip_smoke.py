@@ -30,14 +30,22 @@ Phases, in order; any failure exits nonzero before the last line:
    and the device replay: K7, K8a, K8b, K8c), cold and twice warm; the
    same with lzma (host literal coder: K1, K2; host decode, no kernel),
    and a 16 MiB word-soup text with holes (gzip, which takes the walk
-   fallback).  The launch counters are zeroed just before each run and
-   read just after: every kernel of the path must have launched.  A
-   profile of one warm decompress shows where its time goes;
+   fallback).  Then the dense matcher: the same 64 MiB corpus with
+   ``anchor_stride=1`` and rans (K9 and K3-K6, neither K1 nor K2), round
+   trip, beside the stride-8 numbers; the matcher's stages one by one (K1,
+   the anchor candidates, the chain masks with ``compact_seeds``: K10
+   twice, the full step); and ``decompress_to_device`` of the long-range
+   and pasted-pieces rans archives and of the lzma archive (K7 and K8a-c
+   as for ``decompress``; CUDA tensors equal to the input), timed up to a
+   synchronised device tensor.  The launch counters are zeroed just before
+   each run and read just after: every kernel of the path must have
+   launched.  A profile of one warm decompress shows where its time goes;
 5. card equals CPU: an 8 MiB mixed input (gzip), a 4 MiB skewed input
-   whose literals make one rANS block of 4096 lanes (rans) and a 4 MiB
-   pasted-pieces input (rans, layered replay), each compressed with
-   device="cuda" and with device="cpu", give the same archive bytes, and
-   each device decodes the other's archive;
+   whose literals make one rANS block of 4096 lanes (rans), a 4 MiB
+   pasted-pieces input (rans, layered replay) and a 4 MiB dense
+   (``anchor_stride=1``) rans archive, each compressed with device="cuda"
+   and with device="cpu", give the same archive bytes, and each device
+   decodes the other's archive;
 6. corrupt payloads on the card: a flipped word and a word count cut
    short must raise ``ValueError`` from the literal decode, and a flipped
    byte in an archive's literal block from ``decompress``.
@@ -214,13 +222,19 @@ def phase_build():
             log(f"  ptxas: {line.strip()}")
 
 
+def padded_on_card(data: np.ndarray) -> torch.Tensor:
+    from lrzip_next_tpu_torch.ops.matcher import bucket_size
+    padded = torch.zeros(bucket_size(len(data)), dtype=torch.uint8,
+                         device="cuda")
+    padded[:len(data)] = torch.from_numpy(data).cuda()
+    return padded
+
+
 def check_k1(data: np.ndarray, label: str) -> dict:
     from lrzip_next_tpu_torch.ops.anchor import anchor_fps, \
         anchor_fps_reference
-    from lrzip_next_tpu_torch.ops.matcher import bucket_size
-    nb = bucket_size(len(data))
-    padded = torch.zeros(nb, dtype=torch.uint8, device="cuda")
-    padded[:len(data)] = torch.from_numpy(data).cuda()
+    padded = padded_on_card(data)
+    nb = padded.shape[0]
     ma = ((nb - 31) // STRIDE) * STRIDE
     fpa, fpb = anchor_fps(padded, STRIDE, ma)
     torch.cuda.synchronize()
@@ -249,10 +263,7 @@ def check_k2(data: np.ndarray, label: str) -> dict:
     from lrzip_next_tpu_torch.ops import matcher as M
     from lrzip_next_tpu_torch.ops.compact import compact_starts3, \
         compact_starts3_reference
-    nb = M.bucket_size(len(data))
-    padded = torch.zeros(nb, dtype=torch.uint8, device="cuda")
-    padded[:len(data)] = torch.from_numpy(data).cuda()
-    pos, cand = M.anchor_candidates_fporder(padded, STRIDE)
+    pos, cand = M.anchor_candidates_fporder(padded_on_card(data), STRIDE)
     start, is_end, sp, sd = M.dist_sorted_seed_starts(
         pos, cand, len(data) - 31, M.verify_gap(STRIDE))
     end_at = M.seg_end_copy(sp, is_end)
@@ -286,6 +297,80 @@ def check_k2(data: np.ndarray, label: str) -> dict:
         f"{library_ms:.4f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
             "library_ms": library_ms}
+
+
+def check_k9(data: np.ndarray, label: str) -> dict:
+    """K9 on the run masks of the chunk's dense stride-1 candidates."""
+    from lrzip_next_tpu_torch.ops import matcher as M
+    from lrzip_next_tpu_torch.ops.compact import compact_masked, \
+        compact_masked_reference
+    cand, ok = M.match_candidates(padded_on_card(data))
+    start, is_end, idx = M.run_masks(cand, ok, len(data) - 31)
+    del ok
+    m = start.shape[0]
+    k = int(start.sum())
+    require(int(is_end.sum()) == k, f"K9 input: {k} starts but "
+            f"{int(is_end.sum())} ends at {label}")
+
+    def same(a, b):
+        require(int(a[3]) == int(b[3]) == k,
+                f"K9 count {int(a[3])} != plain {int(b[3])} at {label}")
+        return max(max_err(x[:k], y[:k]) for x, y in zip(a[:3], b[:3]))
+
+    def library():
+        s_idx = torch.nonzero(start).squeeze(1)
+        e_idx = torch.nonzero(is_end).squeeze(1)
+        return idx[s_idx], idx[e_idx], cand[s_idx]
+
+    # bytes: two flags and two int32 payloads in, k triples and the count
+    # out; operations: two flag tests, two ballot ranks and two slots per
+    # element, three moves per run
+    res = timed_pair(
+        "K9 compact_masked", f"{label}: m={m} runs={k}",
+        lambda: compact_masked(start, is_end, idx, cand),
+        lambda: compact_masked_reference(start, is_end, idx, cand), same,
+        bound(10 * m + 12 * k + 4, 6 * m + 3 * k), library,
+        "torch.nonzero twice + 3 gathers")
+    res.pop("out")
+    return res
+
+
+def check_k10(data: np.ndarray, label: str) -> dict:
+    """K10 on the chain masks of the chunk's stride-8 seeds: the launch
+    for (pos, dist) at the chain starts (the row of the table) and the one
+    for pos at the chain ends."""
+    from lrzip_next_tpu_torch.ops import matcher as M
+    from lrzip_next_tpu_torch.ops.compact import compact_starts, \
+        compact_starts_reference
+    pos, cand = M.anchor_candidates_fporder(padded_on_card(data), STRIDE)
+    start, is_end, sp, sd = M.dist_sorted_seed_starts(
+        pos, cand, len(data) - 31, M.verify_gap(STRIDE))
+    kk = start.shape[0]
+    res = None
+    for what, mask in (("starts", start), ("ends", is_end)):
+        k = int(mask.sum())
+
+        def same(a, b):
+            require(int(a[2]) == int(b[2]) == k,
+                    f"K10 count {int(a[2])} != plain {int(b[2])} at {label}")
+            return max(max_err(x[:k], y[:k]) for x, y in zip(a[:2], b[:2]))
+
+        def library():
+            i = torch.nonzero(mask).squeeze(1)
+            return sp[i], sd[i]
+
+        # bytes: the flags and two int32 payloads in, k pairs and the
+        # count out; operations: flag test, ballot rank and slot per
+        # element, two moves per record
+        r = timed_pair(
+            "K10 compact_starts", f"{label}, chain {what}: k={kk} n={k}",
+            lambda: compact_starts(mask, sp, sd),
+            lambda: compact_starts_reference(mask, sp, sd), same,
+            bound(9 * kk + 8 * k + 4, 4 * kk + 2 * k), library,
+            "torch.nonzero + 2 gathers")
+        r.pop("out")
+        res = res or r
+    return res
 
 
 def skewed_symbols(total: int) -> np.ndarray:
@@ -574,6 +659,10 @@ def phase_kernels(corpus64: np.ndarray, pasted64: np.ndarray) -> dict:
     require(all(k in res for k in ("k8a", "k8b", "k8c")),
             f"a replay kernel was not reached: {sorted(res)}")
     torch.cuda.empty_cache()
+    res["k9"] = check_k9(corpus64, "64 MiB dense")
+    torch.cuda.empty_cache()
+    res["k10"] = check_k10(corpus64, "64 MiB stride 8")
+    torch.cuda.empty_cache()
     big = long_range_corpus(256 * MIB)
     check_k1(big, "256 MiB")
     check_k2(big, "256 MiB")
@@ -588,6 +677,7 @@ def zero_launches() -> None:
     from lrzip_next_tpu_torch.ops import streampack as SP
     from lrzip_next_tpu_torch.ops import replay_ragged as RR
     anchor.launches = compact.launches = 0
+    compact.masked_launches = compact.starts_launches = 0
     RK.hist_launches = RK.encode_launches = RK.decode_launches = 0
     SP.stream_launches = SP.plane_launches = 0
     RR.ragged_launches = RR.layered_launches = RR.small_launches = 0
@@ -602,22 +692,28 @@ def read_launches() -> dict:
             "k3": SP.stream_launches, "k4": RK.hist_launches,
             "k5": RK.encode_launches, "k6": SP.plane_launches,
             "k7": RK.decode_launches, "k8a": RR.ragged_launches,
-            "k8b": RR.layered_launches, "k8c": RR.small_launches}
+            "k8b": RR.layered_launches, "k8c": RR.small_launches,
+            "k9": compact.masked_launches, "k10": compact.starts_launches}
 
 
 ENCODE_KERNELS = ("k1", "k2", "k3", "k4", "k5", "k6")
+LITERAL_KERNELS = ("k3", "k4", "k5", "k6")
 DECODE_KERNELS = ("k7", "k8a", "k8b", "k8c")
+DENSE_KERNELS = ("k9", "k10")
 
 
-def compress_timed(raw: bytes, method: str, label: str):
-    """One ``compress`` on the card: (archive, per-chunk stats)."""
+def compress_timed(raw: bytes, method: str, label: str, **settings_kw):
+    """One ``compress`` on the card: (archive, per-chunk stats); the
+    host-clock seconds stand in the first chunk's ``compress_s``."""
     import lrzip_next_tpu_torch as lrzt
     stats = []
-    settings = lrzt.Settings(method=method, stats_sink=stats.append)
+    settings = lrzt.Settings(method=method, stats_sink=stats.append,
+                             **settings_kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     archive = lrzt.compress(raw, settings, device="cuda")
     secs = time.perf_counter() - t0
+    stats[0]["compress_s"] = secs
     dev_ms = sum(sum(s.get("device_ms", {}).values()) for s in stats)
     log(f"slice {label} ({method}): {len(raw)} -> {len(archive)} bytes, "
         f"ratio {len(raw) / len(archive):.4f}, compress {secs:.3f} s, "
@@ -711,6 +807,129 @@ def profile_decompress(archive: bytes) -> None:
         f"check {check_ms:.3f}")
 
 
+def to_device_timed(archive: bytes, corpus: np.ndarray, label: str,
+                    want: dict) -> float:
+    """One ``decompress_to_device`` on the card: CUDA tensors equal to the
+    input, the kernels of ``want`` launched (a count of 0: not launched);
+    host-clock seconds up to a synchronised device tensor."""
+    import lrzip_next_tpu_torch as lrzt
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunks = lrzt.decompress_to_device(archive, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = read_launches()
+    require(all(c.is_cuda and c.dtype == torch.uint8 for c in chunks),
+            f"{label}: decompress_to_device did not return CUDA uint8 "
+            f"tensors")
+    require(torch.equal(torch.cat(chunks), torch.from_numpy(corpus).cuda()),
+            f"{label}: decompress_to_device differs from the input")
+    require(all((got[k] > 0) == (n > 0) for k, n in want.items())
+            and not any(got[k] for k in ENCODE_KERNELS + DENSE_KERNELS),
+            f"{label}: decompress_to_device launched {got}, wanted {want}")
+    log(f"slice {label}: decompress_to_device {secs:.3f} s up to a "
+        f"synchronised device tensor, equals the input; launches "
+        + ", ".join(f"{k} {got[k]}" for k in DECODE_KERNELS))
+    return secs
+
+
+def phase_dense(corpus64: np.ndarray, raw: bytes, stride8: dict) -> dict:
+    """The dense matcher: the 64 MiB long-range corpus with
+    ``anchor_stride=1`` and rans.  Returns the launch counts of the first
+    compress."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    archive, stats = compress_timed(raw, "rans", "64 MiB long-range dense",
+                                    anchor_stride=1)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    require(launches["k9"] == 1
+            and all(launches[k] > 0 for k in LITERAL_KERNELS)
+            and not any(launches[k] for k in ("k1", "k2", "k10")
+                        + DECODE_KERNELS),
+            f"the dense rans compress did not launch K9 and K3-K6 alone: "
+            f"{launches}")
+    secs = decompress_timed(archive, raw, "64 MiB long-range dense rans")
+    again, warm = compress_timed(raw, "rans", "64 MiB long-range dense, "
+                                 "warm", anchor_stride=1)
+    require(again == archive, "the dense rans archive changed between runs")
+    s1, s8 = warm[0], stride8
+    log(f"dense against stride 8 on the 64 MiB long-range corpus (rans, "
+        f"warm): ratio {len(raw) / len(archive):.4f} against "
+        f"{s8['ratio']:.4f}; compress {s1['compress_s']:.3f} s against "
+        f"{s8['compress_s']:.3f} s; matcher device stages "
+        f"{sum(s1['device_ms'].values()):.3f} ms against "
+        f"{sum(s8['device_ms'].values()):.3f} ms; host greedy cover "
+        f"{s1['host_ms']:.3f} ms against host finalize "
+        f"{s8['host_ms']:.3f} ms; runs {s1['chains']} (read back as "
+        f"{12 * s1['chains']} bytes in {s1['device_ms']['readback']:.3f} "
+        f"ms) against {s8['chains']} chains; match bytes "
+        f"{s1['match_bytes']} against {s8['match_bytes']}; decompress "
+        f"{secs:.3f} s; peak device memory of the dense compress "
+        f"{peak} bytes")
+    return launches
+
+
+def phase_matcher_profile(corpus64: np.ndarray) -> int:
+    """The stride-8 matcher's stages one by one on the 64 MiB chunk (host
+    clock, each ended by a synchronise, median of 3 after a warm-up).
+    Returns K10's launches in one ``compact_seeds``."""
+    from lrzip_next_tpu_torch.ops import matcher as M
+    from lrzip_next_tpu_torch.ops.anchor import anchor_fps
+    dev = padded_on_card(corpus64)
+    limit = len(corpus64) - 31
+    ma = ((dev.shape[0] - 31) // STRIDE) * STRIDE
+    gap = M.verify_gap(STRIDE)
+
+    def timeit(name, fn):
+        fn()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        log(f"  {name:46s} {statistics.median(times):9.3f} ms")
+        return statistics.median(times)
+
+    log("matcher stage profile, 64 MiB long-range chunk, stride 8:")
+    timeit("A K1 fingerprints + anchor mask",
+           lambda: anchor_fps(dev, STRIDE, ma))
+    timeit("A+B anchor candidates (row minimum, sort)",
+           lambda: M.anchor_candidates_fporder(dev, STRIDE))
+    pos, cand = M.anchor_candidates_fporder(dev, STRIDE)
+    zero_launches()
+    records = M.compact_seeds(pos, cand, limit, gap)
+    torch.cuda.synchronize()
+    got = read_launches()
+    require(got["k10"] == 2 and sum(got.values()) == 2,
+            f"compact_seeds did not launch K10 twice and nothing else: {got}")
+    fine, _ = M.compact_seeds_dual(pos, cand, limit, gap, M._CHAIN_GAP)
+    require(all(torch.equal(a, b) for a, b in zip(records, fine)),
+            "compact_seeds differs from the fine records of "
+            "compact_seeds_dual")
+    log(f"  compact_seeds: {records[0].shape[0]} chain records, equal to "
+        f"the fine records of compact_seeds_dual; K10 launches {got['k10']}")
+    timeit("  chain masks only ((dist, pos) sort)",
+           lambda: M.dist_sorted_seed_starts(pos, cand, limit, gap))
+    timeit("C chain masks + compact_seeds (K10 twice)",
+           lambda: M.compact_seeds(pos, cand, limit, gap))
+    timeit("C' chain masks + compact_seeds_dual (K2)",
+           lambda: M.compact_seeds_dual(pos, cand, limit, gap,
+                                        M._CHAIN_GAP))
+
+    def full():
+        p, c = M.anchor_candidates_fporder(dev, STRIDE)
+        return M.compact_seeds(p, c, limit, gap)
+
+    ms = timeit("FULL step (A+B+C)", full)
+    log(f"  => {len(corpus64) / 1e6 / (ms / 1e3):.1f} MB/s")
+    return got["k10"]
+
+
 def phase_slice(corpus64: np.ndarray, pasted64: np.ndarray) -> dict:
     from lrzip_next_tpu_torch.ops import matcher
     raw = corpus64.tobytes()
@@ -718,7 +937,7 @@ def phase_slice(corpus64: np.ndarray, pasted64: np.ndarray) -> dict:
     archive, stats = compress_timed(raw, "rans", "64 MiB long-range")
     launches = read_launches()
     require(all(launches[k] > 0 for k in ENCODE_KERNELS)
-            and not any(launches[k] for k in DECODE_KERNELS),
+            and not any(launches[k] for k in DECODE_KERNELS + DENSE_KERNELS),
             f"the rans compress did not launch K1-K6 alone: {launches}")
     require(all(s.get("literal_ms") for s in stats),
             "the rans path did not take the device literal encode")
@@ -735,20 +954,32 @@ def phase_slice(corpus64: np.ndarray, pasted64: np.ndarray) -> dict:
     log(f"launches of both decompresses: {decode}")
     require(decode["k7"] == 2 and decode["k8a"] >= 2
             and decode["k8b"] >= 1 and decode["k8c"] >= 1
-            and not any(decode[k] for k in ENCODE_KERNELS),
+            and not any(decode[k] for k in ENCODE_KERNELS + DENSE_KERNELS),
             f"the rans decompresses did not launch K7 and K8a-c alone: "
             f"{decode}")
     for k in DECODE_KERNELS:
         launches[k] = decode[k]
+    to_dev = [to_device_timed(pasted_archive, pasted64,
+                              "64 MiB pasted pieces rans",
+                              {"k7": 1, "k8a": 1, "k8b": 1, "k8c": 1})]
     del pasted_archive, pasted_raw
     warm = []
     for _ in range(2):
-        again, _ = compress_timed(raw, "rans", "64 MiB long-range, warm")
+        again, stats = compress_timed(raw, "rans", "64 MiB long-range, warm")
         require(again == archive, "the rans archive changed between runs")
         warm.append(decompress_timed(archive, raw,
                                      "64 MiB long-range rans, warm"))
+    stride8 = dict(stats[0], ratio=len(raw) / len(archive))
     log(f"decompress of the 64 MiB rans archive on the card: cold "
         f"{cold:.3f} s, warm {warm[0]:.3f} and {warm[1]:.3f} s")
+    for _ in range(2):
+        to_dev.append(to_device_timed(archive, corpus64,
+                                      "64 MiB long-range rans",
+                                      {"k7": 1, "k8a": 1, "k8c": 1}))
+    log(f"64 MiB long-range rans archive, up to a synchronised device "
+        f"tensor: decompress_to_device {to_dev[1]:.3f} and {to_dev[2]:.3f} "
+        f"s against decompress (host bytes) {warm[0]:.3f} and "
+        f"{warm[1]:.3f} s; pasted pieces {to_dev[0]:.3f} s")
     profile_decompress(archive)
     del archive
 
@@ -761,7 +992,11 @@ def phase_slice(corpus64: np.ndarray, pasted64: np.ndarray) -> dict:
     decompress_timed(lzma_archive, raw, "64 MiB long-range lzma")
     require(sum(read_launches().values()) == 0,
             f"the lzma decompress launched a kernel: {read_launches()}")
+    to_device_timed(lzma_archive, corpus64, "64 MiB long-range lzma",
+                    {"k7": 0, "k8a": 1, "k8c": 1})
     del lzma_archive
+    launches["k9"] = phase_dense(corpus64, raw, stride8)["k9"]
+    launches["k10"] = phase_matcher_profile(corpus64)
     # the same chunk's matcher again, warm (allocator and modules loaded)
     runs = []
     for _ in range(3):
@@ -840,6 +1075,26 @@ def phase_card_equals_cpu() -> bytes:
     log(f"card equals cpu: 4 MiB pasted pieces (rans, layered replay) -> "
         f"{len(p_card)} bytes, identical; each device decodes the other's "
         f"archive; launches on the card {on}")
+
+    dense = lrzt.Settings(method="rans", anchor_stride=1)
+    zero_launches()
+    d_card = lrzt.compress(pasted, dense, device="cuda")
+    on = read_launches()
+    require(on["k9"] == 1 and on["k1"] == 0 and on["k2"] == 0,
+            f"the 4 MiB dense compress on the card launched {on}")
+    zero_launches()
+    d_cpu = lrzt.compress(pasted, dense, device="cpu")
+    require(sum(read_launches().values()) == 0,
+            "the CPU dense compress launched a kernel")
+    require(d_card == d_cpu, "4 MiB dense rans archive differs between "
+            "cuda and cpu")
+    require(lrzt.decompress(d_cpu, device="cuda") == pasted,
+            "the card does not decode the CPU's dense archive")
+    require(lrzt.decompress(d_card, device="cpu") == pasted,
+            "the CPU does not decode the card's dense archive")
+    log(f"card equals cpu: 4 MiB pasted pieces, dense (anchor_stride=1, "
+        f"rans) -> {len(d_card)} bytes against {len(p_card)} at stride 8, "
+        f"identical; each device decodes the other's archive")
     return on_card
 
 
@@ -930,6 +1185,11 @@ def main() -> int:
          "lrzip_next_tpu/ops/replay_ragged.py:481", "k8b"),
         ("small_merge", "lrzip_next_tpu_torch/ops/csrc/replay_ragged.cu",
          "lrzip_next_tpu/ops/replay_ragged.py:607", "k8c"),
+        ("compact_masked",
+         "lrzip_next_tpu_torch/ops/csrc/compact_masked.cu",
+         "lrzip_next_tpu/ops/compact_pallas.py:177", "k9"),
+        ("compact_starts", "lrzip_next_tpu_torch/ops/csrc/compact3.cu",
+         "lrzip_next_tpu/ops/compact_pallas.py:291", "k10"),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

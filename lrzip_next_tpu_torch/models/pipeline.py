@@ -4,16 +4,16 @@ The port's own ``Settings`` (the same fields, defaults and ``resolved_*``
 methods as ``lrzip_next_tpu/models/pipeline.py``), chunk planning, and
 both directions of the single-device chunk loop.
 
-Compress: each chunk goes through the GPU matcher (``ops/matcher.py``);
+Compress: each chunk goes through the GPU matcher (``ops/matcher.py``:
+the anchor-seed pipeline, or with ``anchor_stride=1`` the dense one);
 with ``method="rans"`` and no filter its literal stream is then
 rANS-encoded on the device from the chunk the matcher uploaded
 (``models/device_path.py``), and only the payload comes back.  Every
 other method compresses the literals on the host.  Chunks are planned
 with the 256 MiB device chunk cap (``use_tpu=True`` in the JAX package's
 terms), which makes the archives equal to that package's device path.
-Not ported, and raising ``NotImplementedError``: the dense stride-1
-matcher, ``-U`` over several chunks and the multi-device mesh.  The
-one-chunk lookahead of compress is left out: each chunk runs to its end
+Not ported, and raising ``NotImplementedError``: ``-U`` over several
+chunks and the multi-device mesh.  The one-chunk lookahead of compress is left out: each chunk runs to its end
 before the next starts.
 
 Decompress: a chunk whose literal stream is one ``CTYPE_RANS`` block of
@@ -213,8 +213,6 @@ def plan_chunks(total: int, settings: Settings,
     return sizes
 
 
-
-
 def settings_from_reference(obj) -> Settings:
     """The port's ``Settings`` from another package's settings object.
 
@@ -252,10 +250,6 @@ def _lz4_gate(settings: Settings) -> Optional[Callable[[bytes], bool]]:
 
 def _check_supported(settings: Settings, n_chunks: int) -> None:
     """Raise for the settings whose device path is not ported yet."""
-    if settings.resolved_anchor_stride() == 1:
-        raise NotImplementedError(
-            "anchor_stride=1 (the dense stride-1 matcher, kernel K9) is not "
-            "ported yet; see ROADMAP.md")
     if settings.unlimited and n_chunks > 1:
         raise NotImplementedError(
             "unlimited=True over several chunks is not ported yet; see "
@@ -481,6 +475,57 @@ class _ChunkDecodeJob:
                 b"".join(results[self.n0:]))
 
 
+def read_archive_head(fd: BinaryIO, settings: Settings):
+    """Parse the magic header and leave ``fd`` at the first chunk:
+    ``(magic, crypto context or None, backend config)``.  Raises
+    ``ValueError`` for a short header and for an encrypted archive without
+    a passphrase."""
+    head = fd.read(C.MAGIC_LEN + 64)
+    if len(head) < C.MAGIC_LEN:
+        raise ValueError("archive too short for magic header")
+    magic = MagicHeader.decode(head)
+    fd.seek(magic.header_len)
+    crypto = None
+    if magic.enc_code:
+        if settings.passphrase is None:
+            raise ValueError(
+                "archive is encrypted: a passphrase is required")
+        from ..crypto import CryptoContext
+        crypto = CryptoContext(settings.passphrase, magic.salt,
+                               magic.enc_code,
+                               minor_version=magic.minor_version)
+    cfg = BackendConfig(
+        compression_level=magic.compression_level or 7,
+        dict_size=magic.lzma_dict_size,
+        zpaq_level=magic.zpaq_level, zpaq_bs=magic.zpaq_bs,
+        bzip3_bs=magic.bzip3_bs, zstd_level=magic.zstd_level,
+        zstd_strategy=magic.zstd_strategy,
+        threads=settings.resolved_threads())
+    return magic, crypto, cfg
+
+
+def check_chunk_crc(chunk_bytes: bytes, stored_crc: int,
+                    cumulative_crc: int) -> None:
+    """Raise ``ValueError`` unless the chunk matches its stored CRC under
+    one of the two readings: the chunk's own CRC (this writer's), or the
+    CRC of the whole output so far.
+
+    The reference never resets its gcry CRC handle between chunks
+    (src/rzip.c:943-950 opens it once per file), so reference multi-chunk
+    archives store the CRC of the whole prefix.  Both readings coincide on
+    chunk 0 (``cumulative_crc`` is 0 there); for later chunks a corrupt
+    chunk passing the other reading by chance is a 2^-32 event, the same
+    strength as a single CRC32."""
+    crc = zlib.crc32(chunk_bytes) & 0xFFFFFFFF
+    if stored_crc == stored_crc_int(crc):
+        return
+    if cumulative_crc != 0:
+        cum = zlib.crc32(chunk_bytes, cumulative_crc) & 0xFFFFFFFF
+        if stored_crc == stored_crc_int(cum):
+            return
+    raise ValueError(f"chunk CRC mismatch: stored 0x{stored_crc:08x}")
+
+
 def _finish_chunk_decode(job: _ChunkDecodeJob, history: np.ndarray,
                          cumulative_crc: int) -> bytes:
     """Token parse, replay and the chunk CRC check; returns the chunk."""
@@ -515,22 +560,7 @@ def _finish_chunk_decode(job: _ChunkDecodeJob, history: np.ndarray,
                 kinds, lengths, dists, literals, int(lengths.sum()),
                 history=history if len(history) else None)
         chunk_bytes = chunk.tobytes()
-    crc = zlib.crc32(chunk_bytes) & 0xFFFFFFFF
-    crc_ok = stored_crc == stored_crc_int(crc)
-    if not crc_ok and cumulative_crc != 0:
-        # The reference never resets its gcry CRC handle between chunks
-        # (src/rzip.c:943-950 opens it once per file), so reference
-        # multi-chunk archives store the CRC of the whole prefix; this
-        # writer stores the per-chunk CRC.  Both interpretations
-        # coincide on chunk 0 (cumulative_crc == 0 there, so this
-        # branch is unreachable for the first chunk); for later chunks
-        # a corrupt chunk passing the other interpretation by chance is
-        # a 2^-32 event - same strength as a single CRC32.
-        cum = zlib.crc32(chunk_bytes, cumulative_crc) & 0xFFFFFFFF
-        crc_ok = stored_crc == stored_crc_int(cum)
-    if not crc_ok:
-        raise ValueError(
-            f"chunk CRC mismatch: stored 0x{stored_crc:08x}")
+    check_chunk_crc(chunk_bytes, stored_crc, cumulative_crc)
     return chunk_bytes
 
 
@@ -545,27 +575,7 @@ def iter_decompress(fd: BinaryIO, settings: Optional[Settings] = None,
     """
     dev = resolve_device(device)
     settings = settings or Settings()
-    head = fd.read(C.MAGIC_LEN + 64)
-    if len(head) < C.MAGIC_LEN:
-        raise ValueError("archive too short for magic header")
-    magic = MagicHeader.decode(head)
-    fd.seek(magic.header_len)
-    crypto = None
-    if magic.enc_code:
-        if settings.passphrase is None:
-            raise ValueError(
-                "archive is encrypted: a passphrase is required")
-        from ..crypto import CryptoContext
-        crypto = CryptoContext(settings.passphrase, magic.salt,
-                               magic.enc_code,
-                               minor_version=magic.minor_version)
-    cfg = BackendConfig(
-        compression_level=magic.compression_level or 7,
-        dict_size=magic.lzma_dict_size,
-        zpaq_level=magic.zpaq_level, zpaq_bs=magic.zpaq_bs,
-        bzip3_bs=magic.bzip3_bs, zstd_level=magic.zstd_level,
-        zstd_strategy=magic.zstd_strategy,
-        threads=settings.resolved_threads())
+    magic, crypto, cfg = read_archive_head(fd, settings)
     hasher = ArchiveHash(magic.hash_code) if magic.hash_code else None
     pool = ThreadPoolExecutor(max_workers=settings.resolved_threads())
     out_total = 0

@@ -37,6 +37,11 @@ _SIGNATURES = {
     "lrzt_compact3_scatter": [_vp, _vp, _vp, _vp, _i64, _vp, _vp, _vp,
                               _vp, _vp],
     "lrzt_compact3_tile": [],
+    "lrzt_compact2_scatter": [_vp, _vp, _vp, _i64, _vp, _vp, _vp, _vp],
+    "lrzt_compact_masked_count": [_vp, _vp, _i64, _vp, _vp],
+    "lrzt_compact_masked_scatter": [_vp, _vp, _vp, _vp, _i64, _vp, _vp, _vp,
+                                    _vp, _vp],
+    "lrzt_compact_masked_tile": [],
     "lrzt_pack_tile": [],
     "lrzt_pack_bytes_count": [_vp, _i64, _vp, _vp],
     "lrzt_pack_bytes_scatter": [_vp, _vp, _i64, _vp, _vp, _i64, _vp],

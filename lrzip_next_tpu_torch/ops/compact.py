@@ -1,4 +1,4 @@
-"""K2: order-preserving compaction of three int32 payloads.
+"""K2, K9, K10: order-preserving compactions of int32 payloads at masks.
 
 ``compact_starts3(start, a, b, c)`` returns ``(a_c, b_c, c_c, n)``: the
 payload values at the positions where ``start`` is set, in index order,
@@ -11,6 +11,22 @@ over the block counts, scatter pass); a CPU tensor runs
 Counterpart of ``lrzip_next_tpu/ops/compact_pallas.py``
 ``compact_starts3_pallas``, without its ``cap``: the port reads ``n``
 back once and runs every later stage on exactly ``n`` records.
+
+``compact_starts(start, pos, cand)`` (K10) is the same with two payloads:
+``(pos_c, cand_c, n)``.  A CUDA tensor runs the two-payload scatter of
+``csrc/compact3.cu``; counterpart of ``compact_starts_pallas``.
+
+``compact_masked(start, is_end, pos, cand)`` (K9) returns ``(starts,
+ends, srcs, n)``: ``pos`` at the set ``start`` flags, ``pos`` at the set
+``is_end`` flags and ``cand`` at the set ``start`` flags, each in index
+order, and the count of starts.  The masks are the caller's: for the run
+masks of the dense matcher the k-th start pairs with the k-th end.  A
+CUDA tensor runs ``csrc/compact_masked.cu``; counterpart of
+``compact_masked_pallas``.
+
+In all three, output slots from the count on are unspecified, a CUDA
+tensor launches the kernel or raises, and only a CPU tensor runs the
+plain version (``*_reference``).
 """
 
 from __future__ import annotations
@@ -19,64 +35,149 @@ import torch
 
 from . import _build
 
-launches = 0
+launches = 0          # K2
+masked_launches = 0   # K9
+starts_launches = 0   # K10
+
+
+def _check(name: str, masks, payloads) -> None:
+    first = masks[0]
+    k = first.shape[0] if first.dim() == 1 else -1
+    for x in masks:
+        if x.dtype != torch.bool or x.dim() != 1 or x.shape[0] != k:
+            raise TypeError(f"{name}: masks must be 1-D bool of one length, "
+                            f"got {x.dtype} {tuple(x.shape)}")
+    for x in payloads:
+        if x.dtype != torch.int32 or tuple(x.shape) != (k,):
+            raise TypeError(f"{name}: payloads must be int32 of "
+                            f"shape ({k},), got {x.dtype} {tuple(x.shape)}")
+    if any(x.device != first.device for x in (*masks, *payloads)):
+        raise ValueError(f"{name}: tensors on different devices")
+    if not all(x.is_contiguous() for x in (*masks, *payloads)):
+        raise ValueError(f"{name} needs contiguous tensors")
+    if first.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {first.device}")
+
+
+def _gather_reference(mask: torch.Tensor, payloads):
+    """``x[mask]`` in the first slots of a zeroed k-sized tensor for each
+    payload, and the number of set flags."""
+    idx = torch.nonzero(mask).flatten()
+    n = idx.shape[0]
+    outs = []
+    for x in payloads:
+        o = torch.zeros_like(x)
+        o[:n] = x[idx]
+        outs.append(o)
+    return outs, n
 
 
 def compact_starts3_reference(start: torch.Tensor, a: torch.Tensor,
                               b: torch.Tensor, c: torch.Tensor):
     """Plain PyTorch K2 with the kernel's output contract."""
-    idx = torch.nonzero(start).flatten()
-    n = idx.shape[0]
-    outs = []
-    for x in (a, b, c):
-        o = torch.zeros_like(x)
-        o[:n] = x[idx]
-        outs.append(o)
+    outs, n = _gather_reference(start, (a, b, c))
     return (*outs, torch.tensor(n, dtype=torch.int32, device=start.device))
 
 
-def _check(start, a, b, c) -> None:
-    if start.dtype != torch.bool or start.dim() != 1:
-        raise TypeError(f"compact_starts3: start must be 1-D bool, got "
-                        f"{start.dtype} {tuple(start.shape)}")
-    k = start.shape[0]
-    for x in (a, b, c):
-        if x.dtype != torch.int32 or tuple(x.shape) != (k,):
-            raise TypeError(f"compact_starts3: payloads must be int32 of "
-                            f"shape ({k},), got {x.dtype} {tuple(x.shape)}")
-        if x.device != start.device:
-            raise ValueError("compact_starts3: tensors on different devices")
-    if not all(x.is_contiguous() for x in (start, a, b, c)):
-        raise ValueError("compact_starts3 needs contiguous tensors")
+def compact_starts_reference(start: torch.Tensor, pos: torch.Tensor,
+                             cand: torch.Tensor):
+    """Plain PyTorch K10 with the kernel's output contract."""
+    outs, n = _gather_reference(start, (pos, cand))
+    return (*outs, torch.tensor(n, dtype=torch.int32, device=start.device))
+
+
+def compact_masked_reference(start: torch.Tensor, is_end: torch.Tensor,
+                             pos: torch.Tensor, cand: torch.Tensor):
+    """Plain PyTorch K9 with the kernel's output contract."""
+    (starts, srcs), n = _gather_reference(start, (pos, cand))
+    (ends,), _ = _gather_reference(is_end, (pos,))
+    return (starts, ends, srcs,
+            torch.tensor(n, dtype=torch.int32, device=start.device))
 
 
 def compact_starts3(start: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                     c: torch.Tensor):
     """K2 on the tensors' own device (see the module docstring)."""
     global launches
-    _check(start, a, b, c)
+    _check("compact_starts3", (start,), (a, b, c))
     if start.device.type == "cpu":
         return compact_starts3_reference(start, a, b, c)
-    if start.device.type != "cuda":
-        raise ValueError(f"compact_starts3: unsupported device "
-                         f"{start.device}")
+    outs, n = _scatter_payloads(start, (a, b, c), "lrzt_compact3_scatter")
+    if n is not None:
+        launches += 1
+    return (*outs, _count(n, start.device))
+
+
+def compact_starts(start: torch.Tensor, pos: torch.Tensor,
+                   cand: torch.Tensor):
+    """K10 on the tensors' own device (see the module docstring)."""
+    global starts_launches
+    _check("compact_starts", (start,), (pos, cand))
+    if start.device.type == "cpu":
+        return compact_starts_reference(start, pos, cand)
+    outs, n = _scatter_payloads(start, (pos, cand), "lrzt_compact2_scatter")
+    if n is not None:
+        starts_launches += 1
+    return (*outs, _count(n, start.device))
+
+
+def _count(n, device) -> torch.Tensor:
+    """The 0-dim int32 count; ``n`` is None for an empty input."""
+    if n is None:
+        return torch.zeros((), dtype=torch.int32, device=device)
+    return n.to(torch.int32)
+
+
+def _scatter_payloads(start: torch.Tensor, payloads, scatter: str):
+    """Count pass, block-count scan and the scatter entry point ``scatter``
+    of ``csrc/compact3.cu`` on CUDA tensors.  Returns the k-sized outputs
+    and the count as a 0-dim int64 tensor (None, and nothing launched, for
+    k = 0)."""
     dev = start.device
     k = start.shape[0]
-    outs = [torch.empty(k, dtype=torch.int32, device=dev) for _ in range(3)]
+    outs = [torch.empty(k, dtype=torch.int32, device=dev) for _ in payloads]
     if k == 0:
-        return (*outs, torch.zeros((), dtype=torch.int32, device=dev))
+        return outs, None
     lib = _build.library()
     tile = lib.lrzt_compact3_tile()
     counts = torch.empty(-(-k // tile), dtype=torch.int32, device=dev)
     stream = _build.stream_ptr(dev)
     _build.check(lib.lrzt_compact3_count(start.data_ptr(), k,
                                          counts.data_ptr(), stream),
-                 "compact3 count")
+                 "compact count")
     incl = torch.cumsum(counts, 0, dtype=torch.int64)
     offsets = incl - counts
-    _build.check(lib.lrzt_compact3_scatter(
-        start.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), k,
+    _build.check(getattr(lib, scatter)(
+        start.data_ptr(), *(x.data_ptr() for x in payloads), k,
         offsets.data_ptr(), *(o.data_ptr() for o in outs), stream),
-        "compact3 scatter")
-    launches += 1
-    return (*outs, incl[-1].to(torch.int32))
+        scatter)
+    return outs, incl[-1]
+
+
+def compact_masked(start: torch.Tensor, is_end: torch.Tensor,
+                   pos: torch.Tensor, cand: torch.Tensor):
+    """K9 on the tensors' own device (see the module docstring)."""
+    global masked_launches
+    _check("compact_masked", (start, is_end), (pos, cand))
+    if start.device.type == "cpu":
+        return compact_masked_reference(start, is_end, pos, cand)
+    dev = start.device
+    m = start.shape[0]
+    outs = [torch.empty(m, dtype=torch.int32, device=dev) for _ in range(3)]
+    if m == 0:
+        return (*outs, _count(None, dev))
+    lib = _build.library()
+    blocks = -(-m // lib.lrzt_compact_masked_tile())
+    counts = torch.empty((2, blocks), dtype=torch.int32, device=dev)
+    stream = _build.stream_ptr(dev)
+    _build.check(lib.lrzt_compact_masked_count(
+        start.data_ptr(), is_end.data_ptr(), m, counts.data_ptr(), stream),
+        "compact_masked count")
+    incl = torch.cumsum(counts, 1, dtype=torch.int64)
+    offsets = (incl - counts).contiguous()
+    _build.check(lib.lrzt_compact_masked_scatter(
+        start.data_ptr(), is_end.data_ptr(), pos.data_ptr(),
+        cand.data_ptr(), m, offsets.data_ptr(),
+        *(o.data_ptr() for o in outs), stream), "compact_masked scatter")
+    masked_launches += 1
+    return (*outs, _count(incl[0, -1], dev))

@@ -11,31 +11,42 @@ from __future__ import annotations
 
 import ctypes
 import ctypes.util
+import threading
 from typing import Optional
 
 import numpy as np
 
 _lz4 = None
 _lz4_checked = False
+_lz4_lock = threading.Lock()
 
 
 def _load_lz4():
+    """The loaded liblz4 or None.  The gate runs on pool threads: the
+    first callers wait for the one that loads, so that no block of a
+    chunk is gated by the entropy estimate while its neighbours are
+    gated by LZ4 (the archive bytes depend on the gate's answers)."""
     global _lz4, _lz4_checked
     if _lz4_checked:
         return _lz4
-    _lz4_checked = True
-    for name in ("liblz4.so.1", "liblz4.so", ctypes.util.find_library("lz4")):
-        if not name:
-            continue
-        try:
-            lib = ctypes.CDLL(name)
-            lib.LZ4_compress_default.restype = ctypes.c_int
-            lib.LZ4_compress_default.argtypes = [
-                ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
-            _lz4 = lib
-            break
-        except OSError:
-            continue
+    with _lz4_lock:
+        if _lz4_checked:
+            return _lz4
+        for name in ("liblz4.so.1", "liblz4.so",
+                     ctypes.util.find_library("lz4")):
+            if not name:
+                continue
+            try:
+                lib = ctypes.CDLL(name)
+                lib.LZ4_compress_default.restype = ctypes.c_int
+                lib.LZ4_compress_default.argtypes = [
+                    ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int,
+                    ctypes.c_int]
+                _lz4 = lib
+                break
+            except OSError:
+                continue
+        _lz4_checked = True
     return _lz4
 
 

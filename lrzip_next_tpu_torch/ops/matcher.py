@@ -1,8 +1,10 @@
-"""GPU rzip matcher: the anchor-seed pipeline on PyTorch and CUDA.
+"""GPU rzip matcher: the anchor-seed pipeline and the dense stride-1
+pipeline on PyTorch and CUDA.
 
-Port of the stride > 1 path of ``lrzip_next_tpu/ops/matcher.py``
-(``TpuMatchJob``, device selection with the walk fallback).  One chunk,
-zero-padded to its bucket, goes through:
+Port of ``lrzip_next_tpu/ops/matcher.py`` (``TpuMatchJob``: device
+selection with the walk fallback for stride > 1, dense candidates and run
+compaction for stride 1).  At stride > 1 one chunk, zero-padded to its
+bucket, goes through:
 
 1. K1 (``anchor.anchor_fps``): fingerprints and the local-min anchor mask;
 2. one anchor per stride-row (the leftmost row minimum), then one sort by
@@ -21,9 +23,18 @@ zero-padded to its bucket, goes through:
    or, where the coarse chains would cover much more (dense text), walks
    the coarse records instead (``runtime.greedy_cover``).
 
-Every sort key is an int64 built from the signed int32 values, so the
-order equals ``jax.lax.sort``'s multi-key order, and no stage uses a
-float: coverage sums are exact integers.
+At stride 1 every 32-byte window is a seed (``match_candidates``): both
+fingerprints of every window (plain tensor code, as the JAX package
+computes them outside any kernel), one sort by (fpa, pos), the nearest
+previous window with the same pair as candidate; ``compact_runs`` marks
+the runs of lockstep candidates and K9 (``compact.compact_masked``)
+compacts their (start, end, src) triples; the run count is read back
+once, then the triples, and the host runtime's byte-verified greedy cover
+(``runtime.greedy_cover``) makes the tokens.
+
+Every sort key is an int64 built from the int32 values, so the order
+equals ``jax.lax.sort``'s multi-key order, and no stage uses a float:
+coverage sums are exact integers.
 """
 
 from __future__ import annotations
@@ -35,8 +46,8 @@ import torch
 
 from .. import runtime
 from ..format.constants import MINIMUM_MATCH
-from .anchor import HASH_W, INT32_MAX, anchor_fps
-from .compact import compact_starts3
+from .anchor import HASH_W, INT32_MAX, anchor_fps, window_fps_pair
+from .compact import compact_masked, compact_starts, compact_starts3
 
 # pad value of positions and distances (matcher._I32_BIG)
 _I32_BIG = 0x7FFFFFF0
@@ -131,6 +142,91 @@ def anchor_candidates_fporder(dev: torch.Tensor, stride: int):
     return spos, cand
 
 
+def match_candidates(data: torch.Tensor):
+    """(cand, ok) for every 32-byte window of a uint8 tensor: the nearest
+    previous window with the same two fingerprints as int32 (-1 where
+    none) and ``cand >= 0``; length ``len(data) - 31``
+    (matcher.match_candidates).
+
+    One sort by (fpa as uint32, pos); the second fingerprint rides along
+    and is compared on all 32 bits.  The sorted positions are a
+    permutation of 0..m-1, so the way back to position order is a scatter
+    (the JAX package sorts a second time)."""
+    return candidates_from_fps(*window_fps_pair(data))
+
+
+def candidates_from_fps(fpa: torch.Tensor, fpb: torch.Tensor):
+    """``match_candidates`` from the two fingerprints of every window
+    (uint32 values in int64, as ``anchor.window_fps_pair`` returns
+    them)."""
+    m = fpa.shape[0]
+    dev = fpa.device
+    # uint32 order of fpa as the signed order of an int64 key
+    key = ((fpa - (1 << 31)) << 32) | torch.arange(
+        m, dtype=torch.int64, device=dev)
+    key = torch.sort(key).values
+    spos = key & 0xFFFFFFFF
+    sfpa = key >> 32
+    del key
+    sfpb = fpb[spos]
+    same = (sfpa == _prev(sfpa, 0)) & (sfpb == _prev(sfpb, 0))
+    same[0] = False
+    del sfpa, sfpb
+    cand_sorted = torch.where(same, _prev(spos, 0), -1).to(torch.int32)
+    cand = torch.empty(m, dtype=torch.int32, device=dev)
+    cand[spos] = cand_sorted
+    return cand, cand >= 0
+
+
+def chain_runs(cand: torch.Tensor, ok: torch.Tensor):
+    """(run_start_mask, run_id): a position starts a run when it is ok and
+    its predecessor's candidate does not continue into it; ``run_id`` is
+    the int32 inclusive count of run starts (matcher.chain_runs)."""
+    cont = ok & _prev(ok, False) & (cand == _prev(cand, 0) + 1)
+    cont[:1] = False
+    start = ok & ~cont
+    return start, torch.cumsum(start, 0, dtype=torch.int32)
+
+
+def run_masks(cand: torch.Tensor, ok: torch.Tensor, limit: int):
+    """(start, is_end) masks of the lockstep candidate runs among the
+    positions below ``limit`` (the masks of matcher.compact_runs)."""
+    idx = torch.arange(cand.shape[0], dtype=torch.int32, device=cand.device)
+    valid = ok & (idx < limit)
+    cont = valid & _prev(valid, False) & (cand == _prev(cand, 0) + 1)
+    cont[:1] = False
+    return valid & ~cont, valid & ~_next(cont, False), idx
+
+
+def compact_runs(cand: torch.Tensor, ok: torch.Tensor, limit: int):
+    """Run compaction on the tensors' device: ``(starts, ends, srcs, n)``,
+    the first and last position and the first candidate of every run in
+    position order, in the first ``n`` slots of m-sized int32 tensors
+    (later slots unspecified), ``n`` a 0-dim int32 tensor.  The k-th start
+    pairs with the k-th end because runs cannot nest.  The masks are plain
+    tensor code; K9 compacts them (matcher.compact_runs,
+    compact_pallas.compact_runs_pallas, without their ``cap``)."""
+    start, is_end, idx = run_masks(cand, ok, limit)
+    return compact_masked(start, is_end, idx, cand)
+
+
+def runs_to_host(cand: torch.Tensor, ok: torch.Tensor, limit=None):
+    """Run detection and compaction on the device, then one read-back of
+    the count and one of the triples: int64 numpy ``(starts, run_len,
+    srcs)`` (matcher.runs_to_host)."""
+    if limit is None:
+        limit = cand.shape[0]
+    return fetch_runs(*compact_runs(cand, ok, limit))
+
+
+def fetch_runs(starts, ends, srcs, n):
+    """One read-back of the run count and one of the ``n`` triples of
+    ``compact_runs`` -> int64 numpy (starts, run_len, srcs)."""
+    k = int(n)
+    rs, re, src = _host(torch.stack([starts[:k], ends[:k], srcs[:k]]))
+    return rs, re - rs + 1, src
+
+
 def dist_sorted_seed_starts(pos, cand, limit: int, gap: int):
     """Chain start/end masks over the seeds sorted by (dist, pos): runs of
     equal distance whose positions step by at most ``gap``.  Seeds come in
@@ -181,6 +277,20 @@ def derive_coarse(ps, ds, pe, gap_w: int):
     seg_s = ~cont
     cend = seg_end_copy(pe, ~_next(cont, False))
     return order_chains(ps[seg_s], ds[seg_s], cend[seg_s])
+
+
+def compact_seeds(pos, cand, limit: int, gap: int):
+    """Chain records ``(starts, ends, dists)`` in position order at one
+    chain gap (matcher.compact_seeds / compact_seeds_pallas, without their
+    ``cap``): one (dist, pos) sort, K10 once for (pos, dist) at the chain
+    starts and once for pos at the chain ends, one read-back of the count.
+    Starts and ends are compacted in (dist, pos) order, where the i-th end
+    closes the i-th start; position order comes after."""
+    start, is_end, sp, sd = dist_sorted_seed_starts(pos, cand, limit, gap)
+    ps_c, ds_c, n = compact_starts(start, sp, sd)
+    pe_c, _, _ = compact_starts(is_end, sp, sd)
+    n_raw = int(n)
+    return order_chains(ps_c[:n_raw], ds_c[:n_raw], pe_c[:n_raw])
 
 
 def compact_seeds_dual(pos, cand, limit: int, gap_v: int, gap_w: int):
@@ -262,7 +372,11 @@ class MatchJob:
     the host.  ``dev`` keeps the padded chunk on the device after
     ``collect()`` for the device literal encode (None for a trivial
     chunk).  ``select=False`` walks the coarse chains directly (the JAX
-    package's walk mode).  ``stats`` holds the JAX package's per-chunk
+    package's walk mode).  Stride 1 is the dense matcher: construction
+    queues the fingerprints, the candidate sort and the run compaction
+    (K9); ``collect()`` reads the run count and the run triples back and
+    the host's byte-verified greedy cover makes the tokens (``select`` has
+    no meaning there).  ``stats`` holds the JAX package's per-chunk
     counters and, on CUDA, ``device_ms``: CUDA-event milliseconds of each
     device stage.
     """
@@ -270,18 +384,14 @@ class MatchJob:
     def __init__(self, data, stride: int, device: torch.device,
                  select: bool = True):
         data = np.asarray(data, dtype=np.uint8)
-        if stride == 1:
-            raise NotImplementedError(
-                "anchor stride 1: the dense stride-1 matcher (kernel K9) is "
-                "not ported yet; see ROADMAP.md")
-        if stride not in (2, 4, 8, 16, 32):
-            raise ValueError(f"anchor stride {stride} not in 2..32 "
+        if stride not in (1, 2, 4, 8, 16, 32):
+            raise ValueError(f"anchor stride {stride} not in 1..32 "
                              "(powers of 2)")
         self.data = data
         self.stride = stride
         self.n = len(data)
         self.device = torch.device(device)
-        self.select = select
+        self.select = select and stride > 1
         self.walked = False
         self.stats: dict = {}
         self.trivial = self.n <= HASH_W + 4 or self.n < 4 * stride
@@ -297,6 +407,15 @@ class MatchJob:
         self.dev = torch.from_numpy(padded).to(self.device)
         self.clock.mark("upload")
         self.limit = self.n - HASH_W + 1
+        if stride == 1:
+            fps = window_fps_pair(self.dev)
+            self.clock.mark("fingerprints")
+            cand, ok = candidates_from_fps(*fps)
+            del fps
+            self.clock.mark("candidates")
+            self.runs = compact_runs(cand, ok, self.limit)
+            self.clock.mark("runs")
+            return
         self.seeds = anchor_candidates_fporder(self.dev, stride)
         self.clock.mark("anchors")
 
@@ -319,6 +438,19 @@ class MatchJob:
             raise RuntimeError("runtime.greedy_cover failed")
         return res, len(pw)
 
+    def _dense(self):
+        """Stride 1: the runs' read-back and the host greedy cover in
+        verified mode (exact runs, not gap-merged records)."""
+        rs, rl, src = fetch_runs(*self.runs)
+        self.runs = None
+        self.clock.mark("readback")
+        t_host = time.perf_counter()
+        res = runtime.greedy_cover(rs, rl, src, self.n, HASH_W,
+                                   data=self.data)
+        if res is None:
+            raise RuntimeError("runtime.greedy_cover failed")
+        return res, len(rs), t_host
+
     def collect(self):
         """Final (kinds, lengths, dists) tokens of the chunk."""
         global walk_fallbacks
@@ -332,6 +464,9 @@ class MatchJob:
                         np.zeros(0, np.int64))
             return (np.array([0], np.uint8), np.array([self.n], np.int64),
                     np.array([0], np.int64))
+        if self.stride == 1:
+            (kinds, lengths, dists), chains, t_host = self._dense()
+            return self._finish(kinds, lengths, dists, chains, t_host)
         fine, coarse = self._chains()
         n_raw = int(fine[0].shape[0])
         t_host = time.perf_counter()
@@ -362,6 +497,10 @@ class MatchJob:
                 if res is None:
                     raise RuntimeError("runtime.finalize_tokens failed")
                 kinds, lengths, dists = res
+        return self._finish(kinds, lengths, dists, chains, t_host)
+
+    def _finish(self, kinds, lengths, dists, chains: int, t_host: float):
+        """Fill ``stats`` and hand the tokens on."""
         host_ms = (time.perf_counter() - t_host) * 1e3
         m = kinds == 1
         self.stats = {

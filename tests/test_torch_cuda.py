@@ -497,3 +497,149 @@ def test_decompress_layered_card_equals_cpu(cuda):
     assert lrzt.decompress(archive, device="cpu") == data
     assert after == (RK.decode_launches, RR.ragged_launches,
                      RR.small_launches, RR.layered_launches)
+
+
+# --- K9 and K10: the masked compactions -------------------------------------
+
+_TILE = 4_096    # elements a block of compact3.cu / compact_masked.cu takes
+
+
+def _masks(kind: str, k: int, rng):
+    """(start, is_end) bool masks of length ``k``."""
+    idx = np.arange(k)
+    if kind == "none":
+        return np.zeros(k, bool), np.zeros(k, bool)
+    if kind == "all":
+        return np.ones(k, bool), np.ones(k, bool)
+    if kind == "only_starts":
+        return rng.random(k) < 0.3, np.zeros(k, bool)
+    if kind == "ends_without_starts_in_a_block":
+        # one start in the first block, one end in every block: all blocks
+        # after the first hold ends and no start
+        return idx == 0, idx % _TILE == min(_TILE, k) - 1
+    if kind == "runs":
+        # alternating run starts and ends, the last run cut by the edge
+        cut = np.sort(rng.choice(k, size=min(k, max(2, k // 7)),
+                                 replace=False))
+        start, is_end = np.zeros(k, bool), np.zeros(k, bool)
+        start[cut[0::2]] = True
+        is_end[cut[1::2]] = True
+        return start, is_end
+    return rng.random(k) < 0.5, rng.random(k) < 0.5
+
+
+@pytest.mark.parametrize("k", [1, _TILE - 1, _TILE, _TILE + 1, 100_003])
+@pytest.mark.parametrize("kind", ["none", "all", "only_starts",
+                                  "ends_without_starts_in_a_block", "runs",
+                                  "half"])
+def test_k9_kernel_equals_plain(cuda, kind, k):
+    rng = np.random.default_rng(k)
+    start, is_end = _masks(kind, k, rng)
+    pos, cand = (rng.integers(-2**31, 2**31, k, dtype=np.int64)
+                 .astype(np.int32) for _ in range(2))
+    args = [torch.from_numpy(x).to(cuda) for x in (start, is_end, pos, cand)]
+    before = C.masked_launches
+    out = C.compact_masked(*args)
+    torch.cuda.synchronize()
+    assert C.masked_launches == before + 1
+    ref = C.compact_masked_reference(*args)
+    n, n_end = int(start.sum()), int(is_end.sum())
+    assert int(out[3]) == int(ref[3]) == n and out[3].dtype == torch.int32
+    assert torch.equal(out[0][:n], ref[0][:n])
+    assert torch.equal(out[1][:n_end], ref[1][:n_end])
+    assert torch.equal(out[2][:n], ref[2][:n])
+
+
+@pytest.mark.parametrize("k", [1, _TILE - 1, _TILE, _TILE + 1, 100_003])
+@pytest.mark.parametrize("kind", ["none", "all", "only_starts", "half"])
+def test_k10_kernel_equals_plain(cuda, kind, k):
+    rng = np.random.default_rng(k)
+    start, _ = _masks(kind, k, rng)
+    pos, cand = (rng.integers(-2**31, 2**31, k, dtype=np.int64)
+                 .astype(np.int32) for _ in range(2))
+    args = [torch.from_numpy(x).to(cuda) for x in (start, pos, cand)]
+    before = (C.starts_launches, C.launches)
+    out = C.compact_starts(*args)
+    torch.cuda.synchronize()
+    assert (C.starts_launches, C.launches) == (before[0] + 1, before[1])
+    ref = C.compact_starts_reference(*args)
+    n = int(ref[2])
+    assert int(out[2]) == n and out[2].dtype == torch.int32
+    for x, y in zip(out[:2], ref[:2]):
+        assert torch.equal(x[:n], y[:n])
+
+
+def test_k9_k10_wrappers_raise_on_cuda_tensors_they_do_not_take(cuda):
+    flag = torch.zeros(100, dtype=torch.bool, device=cuda)
+    x = torch.zeros(100, dtype=torch.int32, device=cuda)
+    before = (C.masked_launches, C.starts_launches)
+    with pytest.raises(TypeError):
+        C.compact_masked(flag, flag, x.long(), x)
+    with pytest.raises(ValueError):
+        C.compact_masked(flag, flag.cpu(), x, x)
+    with pytest.raises(ValueError):
+        C.compact_starts(flag[::2], x[::2], x[::2])
+    assert (C.masked_launches, C.starts_launches) == before
+    empty = C.compact_masked(flag[:0], flag[:0], x[:0], x[:0])
+    assert int(empty[3]) == 0 and C.masked_launches == before[0]
+
+
+def test_dense_functions_card_equal_cpu(cuda):
+    data = _repeating(300_000, 11)
+    data[100_000:104_000] = 0
+    t = torch.from_numpy(data)
+    cand, ok = PM.match_candidates(t.to(cuda))
+    rcand, rok = PM.match_candidates(t)
+    assert torch.equal(cand.cpu(), rcand) and torch.equal(ok.cpu(), rok)
+    before = C.masked_launches
+    got = PM.runs_to_host(cand, ok, 290_000)
+    assert C.masked_launches == before + 1
+    for a, b in zip(got, PM.runs_to_host(rcand, rok, 290_000)):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("stride", [2, 8])
+def test_compact_seeds_card_equals_cpu(cuda, stride):
+    data = _repeating(300_000, stride)
+    padded = np.zeros(PM.bucket_size(len(data)), np.uint8)
+    padded[:len(data)] = data
+    t = torch.from_numpy(padded)
+    limit = len(data) - 31
+    before = C.starts_launches
+    got = PM.compact_seeds(*PM.anchor_candidates_fporder(t.to(cuda), stride),
+                           limit, PM.verify_gap(stride))
+    assert C.starts_launches == before + 2
+    want = PM.compact_seeds(*PM.anchor_candidates_fporder(t, stride), limit,
+                            PM.verify_gap(stride))
+    assert len(want[0]) > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("method", ["gzip", "rans"])
+def test_dense_compress_card_equals_cpu(cuda, method):
+    data = _repeating(500_000, 5)
+    data[::3] &= 15      # skewed, so that rANS shrinks the literals
+    raw = data.tobytes()
+    s = lrzt.Settings(method=method, anchor_stride=1)
+    before = (C.masked_launches, C.launches, A.launches)
+    archive = lrzt.compress(raw, s, device=cuda)
+    assert (C.masked_launches, C.launches, A.launches) == \
+        (before[0] + 1, before[1], before[2])
+    assert archive == lrzt.compress(raw, s, device="cpu")
+    assert lrzt.decompress(archive) == raw
+
+
+def test_decompress_to_device_on_the_card(cuda):
+    data = _repeating(500_000, 6)
+    data[::3] &= 15
+    raw = data.tobytes()
+    for method in ("rans", "gzip"):
+        archive = lrzt.compress(raw, lrzt.Settings(method=method,
+                                                   max_chunk=200_000),
+                                device="cpu")
+        k7 = RK.decode_launches
+        chunks = lrzt.decompress_to_device(archive, verify=True)
+        assert all(c.is_cuda and c.dtype == torch.uint8 for c in chunks)
+        assert b"".join(c.cpu().numpy().tobytes() for c in chunks) == raw
+        assert RK.decode_launches == k7 + (3 if method == "rans" else 0)

@@ -444,3 +444,41 @@ def test_two_processes_building_at_once_both_load(tmp_path):
         assert p.returncode == 0, err
         assert out.strip() == "ok"
     assert os.listdir(tmp_path) == ["liblrzt_hostops.so"]
+
+
+def test_lz4_gate_loads_once_for_all_threads(monkeypatch):
+    """The gate runs on pool threads.  While one thread loads liblz4 the
+    others wait for it: none may see "no library" and gate its block by
+    the entropy estimate, or one chunk's blocks would be gated by two
+    rules and the archive bytes would depend on thread timing."""
+    import threading
+    import time
+    real = pgate._load_lz4()
+    if real is None:
+        pytest.skip("no liblz4 on this machine")
+    loads = []
+
+    class SlowCDLL:
+        def __init__(self, name):
+            loads.append(name)
+            time.sleep(0.3)
+            self.LZ4_compress_default = real.LZ4_compress_default
+
+    monkeypatch.setattr(pgate, "_lz4", None)
+    monkeypatch.setattr(pgate, "_lz4_checked", False)
+    monkeypatch.setattr(pgate.ctypes, "CDLL", SlowCDLL)
+    # entropy below 100% but nothing for LZ4 to find: the two rules differ
+    rng = np.random.default_rng(3)
+    data = (rng.integers(0, 256, 50_000, dtype=np.uint8) & 0x3F).tobytes()
+    assert pgate.entropy_estimate_pct(data) < 100.0
+    got = []
+    threads = [threading.Thread(
+        target=lambda: got.append(pgate.compressibility_gate(data)))
+        for _ in range(4)]
+    for t in threads:
+        t.start()
+        time.sleep(0.05)
+    for t in threads:
+        t.join()
+    assert len(loads) == 1
+    assert got == [False] * 4

@@ -143,8 +143,12 @@ def test_trivial_chunks_match(n):
 
 
 def test_stride_one_not_ported():
-    with pytest.raises(NotImplementedError):
-        PM.MatchJob(np.zeros(1000, np.uint8), 1, CPU)
+    """Stride 1 is the dense matcher and raises nothing: the port has no
+    ``NotImplementedError`` left for it; a stride that is no power of two
+    up to 32 is a ``ValueError``."""
+    _assert_same_job(np.zeros(1000, np.uint8), 1)
+    with pytest.raises(ValueError):
+        PM.MatchJob(np.zeros(1000, np.uint8), 64, CPU)
 
 
 # --- the native runtime guard ----------------------------------------------

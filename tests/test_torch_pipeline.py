@@ -103,8 +103,14 @@ def test_unknown_device_type_raises():
     {"use_mesh": True, "max_chunk": 50_000},
 ])
 def test_unported_settings_raise(kw):
+    """``-U`` over several chunks and the mesh raise; ``anchor_stride=1``
+    (the dense matcher) is ported and writes the JAX package's archive."""
+    data = b"ab" * 60_000
+    if kw == {"anchor_stride": 1}:
+        assert _same_archive(data, **kw)
+        return
     with pytest.raises(NotImplementedError):
-        lrzt.compress(b"ab" * 60_000, lrzt.Settings(**kw), device="cpu")
+        lrzt.compress(data, lrzt.Settings(**kw), device="cpu")
 
 
 def test_rans_with_filter_takes_host_literal_coder(corpus_factory):
@@ -119,6 +125,7 @@ def test_port_imports_no_jax(tmp_path):
     code = textwrap.dedent("""
         import sys
         import numpy as np
+        import torch
         import lrzip_next_tpu_torch as lrzt
         rng = np.random.default_rng(0)
         base = rng.integers(0, 256, 60_000, dtype=np.uint8).tobytes()
@@ -127,6 +134,7 @@ def test_port_imports_no_jax(tmp_path):
                                 device="cpu")
         assert lrzt.decompress(archive, device="cpu") == data
         assert len(archive) < len(data) // 2
+        archive_gzip = archive
         p = rng.random(256) ** 8
         skewed = rng.choice(256, 300_000, p=p / p.sum()).astype(np.uint8)
         text = (skewed.tobytes() + base)[:350_000]
@@ -135,6 +143,25 @@ def test_port_imports_no_jax(tmp_path):
         assert lrzt.decompress(archive, device="cpu") == text
         from lrzip_next_tpu_torch.ops import rans_kernels
         assert rans_kernels.decode_launches == 0
+        chunks = lrzt.decompress_to_device(archive, verify=True,
+                                           device="cpu")
+        assert b"".join(c.numpy().tobytes() for c in chunks) == text
+        dense = lrzt.compress(data, lrzt.Settings(method="gzip",
+                                                  anchor_stride=1),
+                              device="cpu")
+        assert lrzt.decompress(dense, device="cpu") == data
+        from lrzip_next_tpu_torch.ops import compact, matcher
+        pos, cand = matcher.anchor_candidates_fporder(
+            torch.zeros(1 << 16, dtype=torch.uint8), 8)
+        assert len(matcher.compact_seeds(pos, cand, 60_000, 64)[0]) == 1
+        assert compact.masked_launches == compact.starts_launches == 0
+        from lrzip_next_tpu_torch import api
+        with open("in.bin", "wb") as fh:
+            fh.write(data)
+        handle = api.Lrzip(api.Mode.COMPRESS_ZLIB, device="cpu")
+        handle.file_add("in.bin")
+        assert handle.run()
+        assert open("in.bin.lrz", "rb").read() == archive_gzip
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "jaxlib" or m.startswith("jaxlib.")
                or m == "lrzip_next_tpu" or m.startswith("lrzip_next_tpu.")]
