@@ -12,8 +12,9 @@ Phases, in order; any failure exits nonzero before the last line:
    process per source, all started together;
 3. kernels: every kernel against its plain PyTorch version on the card,
    bit for bit, with both times (median of 5, CUDA events): K1
-   (anchor_fps) and K2 (compact_starts3) at the matcher's shapes for a
-   64 MiB and a 256 MiB chunk (stride 8); K3 (pack_stream), K4
+   (anchor_fps) and K2 (compact_starts3, the one-pass compaction; its
+   own check is the only run that launches it) at the matcher's shapes
+   for a 64 MiB and a 256 MiB chunk (stride 8); K3 (pack_stream), K4
    (joint_histogram), K5 (encode_scan), K6 (pack_plane) and K7
    (decode_scan) at the shapes of the 64 MiB chunk's literal stream, made
    from its real matcher tokens (level 7, ctx_bits 6; K4, K5 and K7 also
@@ -22,20 +23,27 @@ Phases, in order; any failure exits nonzero before the last line:
    fragment tables that the device replay of the 64 MiB long-range chunk
    and of the 64 MiB pasted-pieces chunk hands them.  Beside each
    kernel's time stand its bound (see ``bound``) and, where one PyTorch
-   call computes the same function, that call's time;
+   call computes the same function, that call's time and the ratio.  K2
+   and K10 also run under ``torch.profiler``: at most one kernel and one
+   memset a call, and the kernel's own device time, also on an all-clear
+   mask and on one tile (``one_pass_floors``);
 4. the slice: ``lrzip_next_tpu_torch.compress`` of the 64 MiB long-range
-   corpus with ``method="rans"`` (the device literal encode: K1-K6) and
+   corpus with ``method="rans"`` (the matcher's K1 and K10, twice a
+   chunk for the chain starts and ends, and the device literal encode:
+   K3-K6) and
    ``decompress`` on the card of that archive and of the 64 MiB
    pasted-pieces one, whose plan is layered (the device literal decode
    and the device replay: K7, K8a, K8b, K8c), cold and twice warm; the
-   same with lzma (host literal coder: K1, K2; host decode, no kernel),
+   same with lzma (host literal coder: K1, K10; host decode, no kernel),
    and a 16 MiB word-soup text with holes (gzip, which takes the walk
    fallback).  Then the dense matcher: the same 64 MiB corpus with
-   ``anchor_stride=1`` and rans (K9 and K3-K6, neither K1 nor K2), round
-   trip, beside the stride-8 numbers; the matcher's stages one by one (K1,
-   the anchor candidates, the chain masks with ``compact_seeds``: K10
-   twice, the full step); and ``decompress_to_device`` of the long-range
-   and pasted-pieces rans archives and of the lzma archive (K7 and K8a-c
+   ``anchor_stride=1`` and rans (K9 and K3-K6, neither K1 nor K10),
+   round trip, beside the stride-8 numbers; the matcher's stages one by
+   one (K1, the anchor candidates, the chain masks with ``compact_seeds``
+   and with ``compact_seeds_dual``: K10 twice each, K2 never; the full
+   step); and
+   ``decompress_to_device`` of the long-range and pasted-pieces rans
+   archives and of the lzma archive (K7 and K8a-c
    as for ``decompress``; CUDA tensors equal to the input), timed up to a
    synchronised device tensor.  The launch counters are zeroed just before
    each run and read just after: every kernel of the path must have
@@ -121,6 +129,26 @@ def bound(moved_bytes: int, int_ops: int) -> dict:
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bound_bytes": int(moved_bytes), "bound_ops": int(int_ops)}
+
+
+def compaction_bound(mask: torch.Tensor, payloads, n: int,
+                     int_ops: int) -> dict:
+    """``bound`` of a compaction (K2, K10) that reads the flags once, each
+    int32 payload only in the 32-byte sectors that hold an element at a
+    set flag (counted from this run's mask and the payloads' addresses),
+    and writes the n kept records and the count.  ``bound_ms_all_payload``
+    is the same bound charged with every payload byte, the figure these
+    rows carried before the kernel read payloads at set flags only."""
+    m = mask.shape[0]
+    idx = torch.nonzero(mask).squeeze(1)
+    sectors = sum(
+        int(torch.unique_consecutive((idx + x.data_ptr() // 4) // 8).numel())
+        for x in payloads)
+    width = 4 * len(payloads)
+    res = bound(m + 32 * sectors + width * n + 4, int_ops)
+    res["bound_ms_all_payload"] = bound((1 + width) * m + width * n + 4,
+                                        int_ops)["bound_ms"]
+    return res
 
 
 def text_blob() -> np.ndarray:
@@ -259,6 +287,47 @@ def check_k1(data: np.ndarray, label: str) -> dict:
             "library_ms": None}
 
 
+def one_pass_device(fn, label: str, reps: int = 5) -> float:
+    """``fn`` calls a K2 or K10 wrapper once.  Under ``torch.profiler``,
+    the calls must run at most one ``compact_kernel`` and at most one
+    memset each on the device and nothing else (the profiler may miss a
+    call of a few microseconds, so fewer count too); returns the kernel's
+    device milliseconds, averaged over the kernels it saw (the wrapper's
+    CUDA-event time also holds the host's work between the events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in ops if "compact_kernel" in e.name]
+    memsets = [e for e in ops if "memset" in e.name.lower()]
+    require(1 <= len(kernels) <= reps and len(memsets) <= reps
+            and len(kernels) + len(memsets) == len(ops),
+            f"{label}: {reps} calls ran {[e.name for e in ops]}")
+    ms = sum(e.device_time_total for e in kernels) / 1e3 / len(kernels)
+    log(f"  {label}: {reps} calls ran {len(kernels)} kernels and "
+        f"{len(memsets)} memsets that the profiler saw; the kernel alone "
+        f"{ms:.4f} ms a call on the device (torch.profiler)")
+    return ms
+
+
+def one_pass_floors(call, m: int, label: str) -> dict:
+    """Device ms of a K2 or K10 wrapper without its payload traffic:
+    ``call(mask)`` on an all-clear mask of the same m flags (the flag loads
+    and the look-back, nothing to scatter) and on one tile's 8192 flags
+    (the launch and one block)."""
+    res = {}
+    for key, n in (("device_ms_all_clear", m), ("device_ms_one_tile", 8192)):
+        mask = torch.zeros(n, dtype=torch.bool, device="cuda")
+        res[key] = one_pass_device(lambda: call(mask), f"{label}, {key}")
+    return res
+
+
 def check_k2(data: np.ndarray, label: str) -> dict:
     from lrzip_next_tpu_torch.ops import matcher as M
     from lrzip_next_tpu_torch.ops.compact import compact_starts3, \
@@ -267,8 +336,12 @@ def check_k2(data: np.ndarray, label: str) -> dict:
     start, is_end, sp, sd = M.dist_sorted_seed_starts(
         pos, cand, len(data) - 31, M.verify_gap(STRIDE))
     end_at = M.seg_end_copy(sp, is_end)
+    zero_launches()
     a, b, c, n = compact_starts3(start, sp, sd, end_at)
     torch.cuda.synchronize()
+    launches = read_launches()   # the check's own, not a path's
+    require(launches["k2"] == 1 and sum(launches.values()) == 1,
+            f"compact_starts3 launched {launches}, not K2 once")
     ra, rb, rc, rn = compact_starts3_reference(start, sp, sd, end_at)
     torch.cuda.synchronize()
     k = int(rn)
@@ -286,17 +359,27 @@ def check_k2(data: np.ndarray, label: str) -> dict:
 
     library_ms = cuda_ms(library)
     m = start.shape[0]
-    # bytes: the flags and three int32 payloads in, n records of three and
-    # the count out; operations: flag test, ballot rank and slot per
-    # element, three moves per record
-    bnd = bound(13 * m + 12 * k + 4, 4 * m + 3 * k)
+    # operations: flag test, ballot rank and slot per element, three moves
+    # per record
+    bnd = compaction_bound(start, (sp, sd, end_at), k, 4 * m + 3 * k)
+    device_ms = one_pass_device(
+        lambda: compact_starts3(start, sp, sd, end_at), f"K2 {label}")
+    floors = one_pass_floors(
+        lambda f: compact_starts3(f, *(x[:f.shape[0]] for x in
+                                       (sp, sd, end_at))), m, f"K2 {label}")
     log(f"K2 compact_starts3 {label}: k={m} n={k} bit-equal; "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
-        f"({bnd['bound_bytes']} bytes), torch.nonzero + 3 gathers "
-        f"{library_ms:.4f} ms")
+        f"({bnd['bound_bytes']} bytes; every payload byte: "
+        f"{bnd['bound_ms_all_payload']:.4f} ms), torch.nonzero + 3 gathers "
+        f"{library_ms:.4f} ms; kernel / library "
+        f"{ms / library_ms:.4f}, bound / kernel {bnd['bound_ms'] / ms:.4f}, "
+        f"bound / device {bnd['bound_ms'] / device_ms:.4f}")
+    # K2 is on no path: its ``launches`` in the kernels line is the main
+    # path's 0, and this check's one launch goes under ``check_launches``
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "device_ms": device_ms, **floors,
+            "check_launches": launches["k2"]}
 
 
 def check_k9(data: np.ndarray, label: str) -> dict:
@@ -359,17 +442,30 @@ def check_k10(data: np.ndarray, label: str) -> dict:
             i = torch.nonzero(mask).squeeze(1)
             return sp[i], sd[i]
 
-        # bytes: the flags and two int32 payloads in, k pairs and the
-        # count out; operations: flag test, ballot rank and slot per
-        # element, two moves per record
+        # operations: flag test, ballot rank and slot per element, two
+        # moves per record
+        bnd = compaction_bound(mask, (sp, sd), k, 4 * kk + 2 * k)
         r = timed_pair(
             "K10 compact_starts", f"{label}, chain {what}: k={kk} n={k}",
             lambda: compact_starts(mask, sp, sd),
             lambda: compact_starts_reference(mask, sp, sd), same,
-            bound(9 * kk + 8 * k + 4, 4 * kk + 2 * k), library,
-            "torch.nonzero + 2 gathers")
+            bnd, library, "torch.nonzero + 2 gathers")
         r.pop("out")
+        r["device_ms"] = one_pass_device(
+            lambda: compact_starts(mask, sp, sd), f"K10 {label}, {what}")
+        log(f"  K10 {label}, {what}: every payload byte "
+            f"{bnd['bound_ms_all_payload']:.4f} ms; bound / device "
+            f"{bnd['bound_ms'] / r['device_ms']:.4f}")
+        if what == "starts":
+            r.update(one_pass_floors(
+                lambda f: compact_starts(f, sp[:f.shape[0]],
+                                         sd[:f.shape[0]]),
+                kk, f"K10 {label}"))
         res = res or r
+        if what == "ends":
+            res.update(ends_ms=r["ms"], ends_library_ms=r["library_ms"],
+                       ends_device_ms=r["device_ms"],
+                       ends_bound_ms=r["bound_ms"])
     return res
 
 
@@ -400,8 +496,10 @@ def timed_pair(name: str, label: str, kernel, plain, same, bnd: dict,
         f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by "
         f"{bnd['bound_by']} ({bnd['bound_bytes']} bytes, "
         f"{bnd['bound_ops']} operations), " +
-        (f"{library_name} {library_ms:.4f} ms" if library is not None
-         else "no single library call"))
+        (f"{library_name} {library_ms:.4f} ms; kernel / library "
+         f"{ms / library_ms:.4f}" if library is not None
+         else "no single library call") +
+        f"; bound / kernel {bnd['bound_ms'] / ms:.4f}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
             "library_ms": library_ms, "out": got}
 
@@ -696,10 +794,11 @@ def read_launches() -> dict:
             "k9": compact.masked_launches, "k10": compact.starts_launches}
 
 
-ENCODE_KERNELS = ("k1", "k2", "k3", "k4", "k5", "k6")
+# K2 is on no path: the chain stage compacts with K10
+ENCODE_KERNELS = ("k1", "k10", "k3", "k4", "k5", "k6")
 LITERAL_KERNELS = ("k3", "k4", "k5", "k6")
 DECODE_KERNELS = ("k7", "k8a", "k8b", "k8c")
-DENSE_KERNELS = ("k9", "k10")
+DENSE_KERNELS = ("k9",)
 
 
 def compress_timed(raw: bytes, method: str, label: str, **settings_kw):
@@ -826,7 +925,8 @@ def to_device_timed(archive: bytes, corpus: np.ndarray, label: str,
     require(torch.equal(torch.cat(chunks), torch.from_numpy(corpus).cuda()),
             f"{label}: decompress_to_device differs from the input")
     require(all((got[k] > 0) == (n > 0) for k, n in want.items())
-            and not any(got[k] for k in ENCODE_KERNELS + DENSE_KERNELS),
+            and not any(got[k] for k in ENCODE_KERNELS + DENSE_KERNELS
+                        + ("k2",)),
             f"{label}: decompress_to_device launched {got}, wanted {want}")
     log(f"slice {label}: decompress_to_device {secs:.3f} s up to a "
         f"synchronised device tensor, equals the input; launches "
@@ -872,10 +972,13 @@ def phase_dense(corpus64: np.ndarray, raw: bytes, stride8: dict) -> dict:
     return launches
 
 
-def phase_matcher_profile(corpus64: np.ndarray) -> int:
+def phase_matcher_profile(corpus64: np.ndarray) -> None:
     """The stride-8 matcher's stages one by one on the 64 MiB chunk (host
     clock, each ended by a synchronise, median of 3 after a warm-up).
-    Returns K10's launches in one ``compact_seeds``."""
+    ``compact_seeds`` and ``compact_seeds_dual`` must each launch K10
+    twice and nothing else (that ``compact_seeds_dual`` runs no
+    ``torch.cummin`` over the seed array is
+    ``tests/test_torch_chains.py``'s)."""
     from lrzip_next_tpu_torch.ops import matcher as M
     from lrzip_next_tpu_torch.ops.anchor import anchor_fps
     dev = padded_on_card(corpus64)
@@ -907,19 +1010,30 @@ def phase_matcher_profile(corpus64: np.ndarray) -> int:
     got = read_launches()
     require(got["k10"] == 2 and sum(got.values()) == 2,
             f"compact_seeds did not launch K10 twice and nothing else: {got}")
-    fine, _ = M.compact_seeds_dual(pos, cand, limit, gap, M._CHAIN_GAP)
+    zero_launches()
+    fine, coarse = M.compact_seeds_dual(pos, cand, limit, gap, M._CHAIN_GAP)
+    torch.cuda.synchronize()
+    dual = read_launches()
+    require(dual["k10"] == 2 and sum(dual.values()) == 2,
+            f"compact_seeds_dual did not launch K10 twice and nothing else "
+            f"(K2 never): {dual}")
     require(all(torch.equal(a, b) for a, b in zip(records, fine)),
             "compact_seeds differs from the fine records of "
             "compact_seeds_dual")
     log(f"  compact_seeds: {records[0].shape[0]} chain records, equal to "
-        f"the fine records of compact_seeds_dual; K10 launches {got['k10']}")
+        f"the fine records of compact_seeds_dual; K10 launches "
+        f"{got['k10']} and {dual['k10']}, K2 {dual['k2']}; "
+        f"{coarse[0].shape[0]} coarse records against {pos.shape[0]} seeds")
     timeit("  chain masks only ((dist, pos) sort)",
            lambda: M.dist_sorted_seed_starts(pos, cand, limit, gap))
-    timeit("C chain masks + compact_seeds (K10 twice)",
-           lambda: M.compact_seeds(pos, cand, limit, gap))
-    timeit("C' chain masks + compact_seeds_dual (K2)",
-           lambda: M.compact_seeds_dual(pos, cand, limit, gap,
-                                        M._CHAIN_GAP))
+    fine_ms = timeit("C chain masks + compact_seeds (K10 twice)",
+                     lambda: M.compact_seeds(pos, cand, limit, gap))
+    dual_ms = timeit("C' chain masks + compact_seeds_dual (K10 twice)",
+                     lambda: M.compact_seeds_dual(pos, cand, limit, gap,
+                                                  M._CHAIN_GAP))
+    log(f"  compact_seeds_dual {dual_ms:.3f} ms against compact_seeds "
+        f"{fine_ms:.3f} ms: the coarse chains cost "
+        f"{dual_ms - fine_ms:.3f} ms")
 
     def full():
         p, c = M.anchor_candidates_fporder(dev, STRIDE)
@@ -927,7 +1041,6 @@ def phase_matcher_profile(corpus64: np.ndarray) -> int:
 
     ms = timeit("FULL step (A+B+C)", full)
     log(f"  => {len(corpus64) / 1e6 / (ms / 1e3):.1f} MB/s")
-    return got["k10"]
 
 
 def phase_slice(corpus64: np.ndarray, pasted64: np.ndarray) -> dict:
@@ -937,8 +1050,10 @@ def phase_slice(corpus64: np.ndarray, pasted64: np.ndarray) -> dict:
     archive, stats = compress_timed(raw, "rans", "64 MiB long-range")
     launches = read_launches()
     require(all(launches[k] > 0 for k in ENCODE_KERNELS)
+            and launches["k10"] == 2 * len(stats) and launches["k2"] == 0
             and not any(launches[k] for k in DECODE_KERNELS + DENSE_KERNELS),
-            f"the rans compress did not launch K1-K6 alone: {launches}")
+            f"the rans compress did not launch K1, K10 (twice a chunk) and "
+            f"K3-K6 alone: {launches}")
     require(all(s.get("literal_ms") for s in stats),
             "the rans path did not take the device literal encode")
     pasted_raw = pasted64.tobytes()
@@ -984,10 +1099,12 @@ def phase_slice(corpus64: np.ndarray, pasted64: np.ndarray) -> dict:
     del archive
 
     zero_launches()
-    lzma_archive, _ = compress_timed(raw, "lzma", "64 MiB long-range")
+    lzma_archive, lzma_stats = compress_timed(raw, "lzma",
+                                              "64 MiB long-range")
     lzma = read_launches()
-    require(lzma["k1"] > 0 and lzma["k2"] > 0,
-            f"the lzma path did not launch K1 and K2: {lzma}")
+    require(lzma["k1"] > 0 and lzma["k10"] == 2 * len(lzma_stats)
+            and lzma["k2"] == 0,
+            f"the lzma path did not launch K1 and K10 alone: {lzma}")
     zero_launches()
     decompress_timed(lzma_archive, raw, "64 MiB long-range lzma")
     require(sum(read_launches().values()) == 0,
@@ -996,7 +1113,7 @@ def phase_slice(corpus64: np.ndarray, pasted64: np.ndarray) -> dict:
                     {"k7": 0, "k8a": 1, "k8c": 1})
     del lzma_archive
     launches["k9"] = phase_dense(corpus64, raw, stride8)["k9"]
-    launches["k10"] = phase_matcher_profile(corpus64)
+    phase_matcher_profile(corpus64)
     # the same chunk's matcher again, warm (allocator and modules loaded)
     runs = []
     for _ in range(3):
@@ -1080,7 +1197,8 @@ def phase_card_equals_cpu() -> bytes:
     zero_launches()
     d_card = lrzt.compress(pasted, dense, device="cuda")
     on = read_launches()
-    require(on["k9"] == 1 and on["k1"] == 0 and on["k2"] == 0,
+    require(on["k9"] == 1 and on["k1"] == 0 and on["k2"] == 0
+            and on["k10"] == 0,
             f"the 4 MiB dense compress on the card launched {on}")
     zero_launches()
     d_cpu = lrzt.compress(pasted, dense, device="cpu")
@@ -1160,6 +1278,8 @@ def main() -> int:
     corpus64 = long_range_corpus(64 * MIB)
     pasted64 = pasted_corpus(64 * MIB)
     kern = phase_kernels(corpus64, pasted64)
+    # K2 is on no path (the chain stage compacts with K10): its launches
+    # are the stride-8 compress's 0, which phase_slice requires
     launches = phase_slice(corpus64, pasted64)
     phase_corrupt(phase_card_equals_cpu())
     log(f"all phases passed in {time.perf_counter() - t0:.3f} s")

@@ -33,11 +33,10 @@ _ci = ctypes.c_int
 # C signatures of csrc/*.cu's extern "C" entry points
 _SIGNATURES = {
     "lrzt_anchor_fps": [_vp, _i64, _i64, _ci, _vp, _vp, _vp],
-    "lrzt_compact3_count": [_vp, _i64, _vp, _vp],
-    "lrzt_compact3_scatter": [_vp, _vp, _vp, _vp, _i64, _vp, _vp, _vp,
-                              _vp, _vp],
-    "lrzt_compact3_tile": [],
-    "lrzt_compact2_scatter": [_vp, _vp, _vp, _i64, _vp, _vp, _vp, _vp],
+    "lrzt_compact3": [_vp, _vp, _vp, _vp, _i64, _vp, _i64, _vp, _vp, _vp,
+                      _vp, _vp],
+    "lrzt_compact2": [_vp, _vp, _vp, _i64, _vp, _i64, _vp, _vp, _vp, _vp],
+    "lrzt_compact_slots": [_i64],
     "lrzt_compact_masked_count": [_vp, _vp, _i64, _vp, _vp],
     "lrzt_compact_masked_scatter": [_vp, _vp, _vp, _vp, _i64, _vp, _vp, _vp,
                                     _vp, _vp],
@@ -160,5 +159,10 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream (what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    building a Stream object: a few microseconds less per launch)."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

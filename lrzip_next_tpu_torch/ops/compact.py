@@ -4,29 +4,37 @@
 payload values at the positions where ``start`` is set, in index order,
 in the first ``n`` slots of k-sized int32 tensors (slots from ``n`` on
 are unspecified), and ``n`` as a 0-dim int32 tensor on the same device.
-A CUDA tensor runs ``csrc/compact3.cu`` (count pass, ``torch.cumsum``
-over the block counts, scatter pass); a CPU tensor runs
-``compact_starts3_reference``.
+A CUDA tensor runs the one-pass kernel of ``csrc/compact3.cu``: one
+launch, after one ``cudaMemsetAsync`` of a small per-call workspace on
+the same stream; each block finds its tile's output offset by a
+decoupled look-back over the tiles before it, and the last one writes
+the count, so the host steps between a count pass and a scatter pass are
+gone.  A CPU tensor runs ``compact_starts3_reference``.
 
 Counterpart of ``lrzip_next_tpu/ops/compact_pallas.py``
 ``compact_starts3_pallas``, without its ``cap``: the port reads ``n``
-back once and runs every later stage on exactly ``n`` records.
+back once and runs every later stage on exactly ``n`` records.  The
+port's matcher reaches the same chain records through K10 and no longer
+calls K2.
 
-``compact_starts(start, pos, cand)`` (K10) is the same with two payloads:
-``(pos_c, cand_c, n)``.  A CUDA tensor runs the two-payload scatter of
-``csrc/compact3.cu``; counterpart of ``compact_starts_pallas``.
+``compact_starts(start, pos, cand)`` (K10) is the same kernel with two
+payloads, ``(pos_c, cand_c, n)``; counterpart of
+``compact_starts_pallas``.  The matcher's chain stage launches it
+twice a chunk, on the chain starts and on the chain ends.
 
 ``compact_masked(start, is_end, pos, cand)`` (K9) returns ``(starts,
 ends, srcs, n)``: ``pos`` at the set ``start`` flags, ``pos`` at the set
 ``is_end`` flags and ``cand`` at the set ``start`` flags, each in index
 order, and the count of starts.  The masks are the caller's: for the run
 masks of the dense matcher the k-th start pairs with the k-th end.  A
-CUDA tensor runs ``csrc/compact_masked.cu``; counterpart of
+CUDA tensor runs ``csrc/compact_masked.cu`` (count pass, ``torch.cumsum``
+over the block counts, scatter pass); counterpart of
 ``compact_masked_pallas``.
 
 In all three, output slots from the count on are unspecified, a CUDA
 tensor launches the kernel or raises, and only a CPU tensor runs the
-plain version (``*_reference``).
+plain version (``*_reference``).  K2 and K10 take fewer than 2**31
+flags, and a contiguous slice that starts at any byte.
 """
 
 from __future__ import annotations
@@ -102,10 +110,10 @@ def compact_starts3(start: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     _check("compact_starts3", (start,), (a, b, c))
     if start.device.type == "cpu":
         return compact_starts3_reference(start, a, b, c)
-    outs, n = _scatter_payloads(start, (a, b, c), "lrzt_compact3_scatter")
-    if n is not None:
+    outs, n = _one_pass(start, (a, b, c), "lrzt_compact3")
+    if start.shape[0]:
         launches += 1
-    return (*outs, _count(n, start.device))
+    return (*outs, n)
 
 
 def compact_starts(start: torch.Tensor, pos: torch.Tensor,
@@ -115,10 +123,10 @@ def compact_starts(start: torch.Tensor, pos: torch.Tensor,
     _check("compact_starts", (start,), (pos, cand))
     if start.device.type == "cpu":
         return compact_starts_reference(start, pos, cand)
-    outs, n = _scatter_payloads(start, (pos, cand), "lrzt_compact2_scatter")
-    if n is not None:
+    outs, n = _one_pass(start, (pos, cand), "lrzt_compact2")
+    if start.shape[0]:
         starts_launches += 1
-    return (*outs, _count(n, start.device))
+    return (*outs, n)
 
 
 def _count(n, device) -> torch.Tensor:
@@ -128,30 +136,31 @@ def _count(n, device) -> torch.Tensor:
     return n.to(torch.int32)
 
 
-def _scatter_payloads(start: torch.Tensor, payloads, scatter: str):
-    """Count pass, block-count scan and the scatter entry point ``scatter``
-    of ``csrc/compact3.cu`` on CUDA tensors.  Returns the k-sized outputs
-    and the count as a 0-dim int64 tensor (None, and nothing launched, for
-    k = 0)."""
+def _one_pass(start: torch.Tensor, payloads, entry: str):
+    """The one-pass kernel ``entry`` of ``csrc/compact3.cu`` on CUDA
+    tensors: the k-sized outputs and the 0-dim int32 count (nothing
+    launched for k = 0).  Each output, the count and the workspace are
+    allocations of their own: on the host an allocation costs less than a
+    view of a shared one."""
     dev = start.device
     k = start.shape[0]
+    if k >= 1 << 31:
+        raise ValueError(f"{entry}: {k} flags; the kernel takes fewer than "
+                         "2**31")
     outs = [torch.empty(k, dtype=torch.int32, device=dev) for _ in payloads]
     if k == 0:
-        return outs, None
+        return outs, _count(None, dev)
     lib = _build.library()
-    tile = lib.lrzt_compact3_tile()
-    counts = torch.empty(-(-k // tile), dtype=torch.int32, device=dev)
-    stream = _build.stream_ptr(dev)
-    _build.check(lib.lrzt_compact3_count(start.data_ptr(), k,
-                                         counts.data_ptr(), stream),
-                 "compact count")
-    incl = torch.cumsum(counts, 0, dtype=torch.int64)
-    offsets = incl - counts
-    _build.check(getattr(lib, scatter)(
+    # freed on return, maybe before the kernel ends: the caching allocator
+    # hands the block only to work queued after it on this stream
+    ws = torch.empty(lib.lrzt_compact_slots(k), dtype=torch.int64,
+                     device=dev)
+    n = torch.empty((), dtype=torch.int32, device=dev)
+    _build.check(getattr(lib, entry)(
         start.data_ptr(), *(x.data_ptr() for x in payloads), k,
-        offsets.data_ptr(), *(o.data_ptr() for o in outs), stream),
-        scatter)
-    return outs, incl[-1]
+        ws.data_ptr(), ws.shape[0], *(o.data_ptr() for o in outs),
+        n.data_ptr(), _build.stream_ptr(dev)), entry)
+    return outs, n
 
 
 def compact_masked(start: torch.Tensor, is_end: torch.Tensor,

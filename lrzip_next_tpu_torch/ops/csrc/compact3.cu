@@ -1,32 +1,60 @@
 // K2 and K10: order-preserving compaction of three (K2) or two (K10) int32
-// payloads at flagged positions, plus the count.  One source: the payload
-// count is a template parameter of the scatter kernel, the count pass is
-// shared.
+// payloads at flagged positions, plus the count, in ONE launch: a
+// single-pass compaction with a decoupled look-back (Merrill and
+// Garland's scan, written out here).  The payload count is a template
+// parameter of the one kernel.
 //
 // Replaces: lrzip_next_tpu/ops/compact_pallas.py : compact_starts3_pallas
 // (kernel _compact_kernel3) and compact_starts_pallas (kernel
 // _compact_kernel2).  out_x[r] = x[i] for the r-th set flag i, in index
-// order, for x in (a, b, c) or (a, b).
+// order, for x in (a, b, c) or (a, b); *n = the number of set flags.
 //
 // Bound on the card (NVIDIA H100 80GB HBM3 at a 700 W power limit):
-// device memory.  Every element is read twice (the
-// flag in the count pass, flag and payloads in the scatter pass) and only
-// the kept elements are written: about 14 bytes per element plus 12 per
-// kept one with three payloads (10 plus 8 with two), against a few
-// integer operations.  The TPU design does not
-// carry over: it routed elements with log-shift concats inside a tile and
-// relied on its grid running IN ORDER, each tile's full window
-// overwriting the previous tile's garbage tail.  GPU blocks run in no
-// order, so this is the classic two-pass split instead:
-//   1. lrzt_compact3_count: each block counts the flags of its TILE
-//      elements (warp ballots + popc, one int32 per block);
-//   2. the caller takes the exclusive scan of the block counts (a few
-//      thousand values; torch.cumsum, as the JAX wrapper used jnp.cumsum);
-//   3. lrzt_compact3_scatter: each block walks its TILE in kRounds rounds
-//      of kThreads consecutive elements (coalesced loads), ranks the set
-//      elements with a warp ballot and a shuffle scan over the warp
-//      totals, and writes the payloads to offset[block] + rank.
-// Writes land only at their final slots, so block order never matters.
+// device memory.  The function reads each flag once, each payload in the
+// 32-byte sectors that hold a set flag only, and writes the kept records
+// and the count: on the matcher's chain starts (6% of the seeds) about
+// 2.7 (K10) or 3.5 (K2) bytes per element, against a few integer
+// operations per element.  The TPU
+// design does not carry over: it routed elements with log-shift concats
+// inside a tile and relied on its grid running IN ORDER.  GPU blocks run
+// in no order, so each block works out its tile's output offset itself:
+//   1. ticket: thread 0 takes the tile index from an atomicAdd on the
+//      zeroed workspace's counter, so a block waits only on tiles with
+//      lower tickets, whose blocks are already running: the look-back
+//      always makes progress, whatever order the blocks start in;
+//   2. load and count: warp w owns the tile's flags [1024 w, 1024 w +
+//      1024); each lane loads two 16-byte vectors of them (a 512-byte
+//      coalesced row a load), stores them in shared memory and counts the
+//      nonzero bytes with one bit trick and __popc a word.  A vector that
+//      is not wholly inside [0, k) (the unaligned head of a slice such as
+//      flag[1:], the tail) is loaded byte by byte, so no read leaves the
+//      flags;
+//   3. publish, then look back: the block's aggregate goes into its tile
+//      descriptor at once (status and value in one 64-bit word, one
+//      store after a __threadfence(), so no reader sees a status with a
+//      stale value); warp 0 then reads the descriptors of up to 32
+//      predecessors at a time, spins while any of them is unset, sums
+//      aggregates back to the nearest inclusive prefix, and publishes its
+//      own inclusive prefix.  The tile that holds element k-1 writes it
+//      to *n;
+//   4. scatter: each warp ranks its own 1024 flags from shared memory in
+//      32 rounds of one ballot (no block barrier), reads the payloads at
+//      the set flags only and writes them to their final slots, and
+//      stops once its count is reached.  The rounds go in batches of 8:
+//      the batch's ballots and payload loads first, its stores after, so
+//      a warp waits on one memory latency a batch, not one a round (at
+//      6% density most rounds of 32 flags hold a set one).
+// Tile = 8192 flags (256 threads, 8 warps): the 64 MiB chunk's 8,388,604
+// seeds make 1024 tiles, and each lane moves 32 flag bytes in two 16-byte
+// loads.  At 40 registers (two payloads) and 62 (three) an SM holds 6 and
+// 4 blocks, so those tiles take two waves.  Capping the kernel at 32
+// registers for one wave, measured on an H100, made the flag pass faster
+// but the scatter slower (a batch of 4 rounds) or spilled (a batch of 8),
+// for no gain on two payloads at that size.  The
+// workspace (ticket counter and one descriptor a tile) is the caller's,
+// allocated per call on the launch stream, and zeroed here by one
+// cudaMemsetAsync on that stream, so back-to-back calls and calls on
+// other streams never share a ticket or a descriptor.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -35,32 +63,14 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRounds = 16;
-constexpr int kTile = kThreads * kRounds;  // elements per block
+constexpr int kTile = 8192;                // flags a block
+constexpr int kSeg = kTile / kWarps;       // flags a warp
+constexpr int kRounds = kSeg / 32;         // ballot rounds a warp
+constexpr int kBatch = 8;                  // rounds whose loads overlap
 constexpr unsigned kFull = 0xFFFFFFFFu;
-
-__global__ void __launch_bounds__(kThreads)
-count_kernel(const uint8_t* __restrict__ flags, int64_t k,
-             int32_t* __restrict__ counts) {
-  __shared__ int s_warp[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t base = int64_t(blockIdx.x) * kTile;
-  int total = 0;
-#pragma unroll 4
-  for (int r = 0; r < kRounds; ++r) {
-    const int64_t i = base + int64_t(r) * kThreads + threadIdx.x;
-    const bool f = i < k && flags[i] != 0;
-    total += __popc(__ballot_sync(kFull, f));
-  }
-  if (lane == 0) s_warp[warp] = total;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int s = 0;
-    for (int w = 0; w < kWarps; ++w) s += s_warp[w];
-    counts[blockIdx.x] = s;
-  }
-}
+// descriptor: status in the high word (0 unset), value in the low word
+constexpr unsigned long long kAggregate = 1ull << 32;
+constexpr unsigned long long kPrefix = 2ull << 32;
 
 template <int kPayloads>
 struct Payloads {
@@ -68,95 +78,199 @@ struct Payloads {
   int32_t* out[kPayloads];
 };
 
+__device__ __forceinline__ int nonzero_bytes(unsigned w) {
+  // bit 7 of a byte of t is set iff that byte of w is nonzero
+  const unsigned t = ((w & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | w;
+  return __popc(t & 0x80808080u);
+}
+
+// 16 flags from element e on; flags outside [0, k) read as 0.  `flags + e`
+// is 16-byte aligned whenever the vector lies inside [0, k).
+__device__ __forceinline__ uint4 load16(const uint8_t* __restrict__ flags,
+                                        int64_t e, int64_t k) {
+  if (e >= 0 && e + 16 <= k)
+    return __ldg(reinterpret_cast<const uint4*>(flags + e));
+  unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int64_t i = e + j;
+    if (i >= 0 && i < k && flags[i] != 0) w[j >> 2] |= 1u << (8 * (j & 3));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ void publish(unsigned long long* d,
+                                        unsigned long long v) {
+  __threadfence();
+  *reinterpret_cast<volatile unsigned long long*>(d) = v;
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// Warp 0: the tile's exclusive prefix, with the aggregate published
+// first and the inclusive prefix after.
+__device__ int look_back(unsigned long long* desc, int tile, int agg) {
+  const int lane = threadIdx.x & 31;
+  if (tile == 0) {
+    if (lane == 0) publish(desc, kPrefix | unsigned(agg));
+    return 0;
+  }
+  if (lane == 0) publish(desc + tile, kAggregate | unsigned(agg));
+  int excl = 0;
+  for (int pred = tile - 1;; pred -= 32) {
+    const int j = pred - lane;   // lane 0 the nearest predecessor
+    unsigned long long d = kPrefix;  // before tile 0: a prefix of 0
+    for (;;) {
+      if (j >= 0)
+        d = *reinterpret_cast<volatile unsigned long long*>(desc + j);
+      if (!__any_sync(kFull, (d >> 32) == 0)) break;
+      __nanosleep(64);
+    }
+    const unsigned prefixes = __ballot_sync(kFull, (d >> 32) == 2);
+    const int v = int(unsigned(d));
+    if (prefixes) {
+      const int first = __ffs(prefixes) - 1;
+      excl += warp_sum(lane <= first ? v : 0);
+      break;
+    }
+    excl += warp_sum(v);
+  }
+  if (lane == 0) publish(desc + tile, kPrefix | unsigned(excl + agg));
+  return excl;
+}
+
 template <int kPayloads>
 __global__ void __launch_bounds__(kThreads)
-scatter_kernel(const uint8_t* __restrict__ flags, Payloads<kPayloads> p,
-               int64_t k, const int64_t* __restrict__ offsets) {
-  __shared__ int s_pre[kWarps];
-  __shared__ int s_tot;
+compact_kernel(const uint8_t* __restrict__ flags, Payloads<kPayloads> p,
+               int64_t k, int head, int tiles, unsigned long long* ws,
+               int32_t* __restrict__ n_out) {
+  __shared__ __align__(16) uint8_t s_flags[kTile];
+  __shared__ int s_warp[kWarps];
+  __shared__ int s_tile;
+  __shared__ int s_excl;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t base = int64_t(blockIdx.x) * kTile;
-  int64_t out = offsets[blockIdx.x];
-  for (int r = 0; r < kRounds; ++r) {
-    const int64_t i = base + int64_t(r) * kThreads + threadIdx.x;
-    const bool f = i < k && flags[i] != 0;
-    const unsigned ballot = __ballot_sync(kFull, f);
-    const int lane_rank = __popc(ballot & ((1u << lane) - 1u));
-    if (lane == 0) s_pre[warp] = __popc(ballot);
-    __syncthreads();
-    if (warp == 0) {
-      // exclusive scan of the kWarps warp totals by shuffles
-      const int v = lane < kWarps ? s_pre[lane] : 0;
-      int incl = v;
+  if (threadIdx.x == 0) s_tile = int(atomicAdd(ws, 1ull));
+  __syncthreads();
+  const int tile = s_tile;
+  // element index of the tile's first flag: tiles are cut at 16-byte
+  // boundaries of the flags' addresses, the first one `head` bytes early
+  const int64_t base = int64_t(tile) * kTile - head;
+
+  int cnt = 0;
 #pragma unroll
-      for (int o = 1; o < kWarps; o <<= 1) {
-        const int y = __shfl_up_sync(kFull, incl, o);
-        if (lane >= o) incl += y;
+  for (int h = 0; h < 2; ++h) {
+    const int local = warp * kSeg + h * (kSeg / 2) + lane * 16;
+    const uint4 v = load16(flags, base + local, k);
+    *reinterpret_cast<uint4*>(s_flags + local) = v;
+    cnt += nonzero_bytes(v.x) + nonzero_bytes(v.y) + nonzero_bytes(v.z) +
+           nonzero_bytes(v.w);
+  }
+  cnt = warp_sum(cnt);   // the warp's count, in every lane
+  if (lane == 0) s_warp[warp] = cnt;
+  __syncthreads();
+  if (warp == 0) {
+    const int v = lane < kWarps ? s_warp[lane] : 0;
+    int incl = v;
+#pragma unroll
+    for (int o = 1; o < kWarps; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const int agg = __shfl_sync(kFull, incl, kWarps - 1);
+    if (lane < kWarps) s_warp[lane] = incl - v;  // warp offsets in the tile
+    const int excl = look_back(ws + 1, tile, agg);
+    if (lane == 0) {
+      s_excl = excl;
+      if (tile == tiles - 1) *n_out = excl + agg;
+    }
+  }
+  __syncthreads();
+  if (cnt == 0) return;
+
+  int64_t out = int64_t(s_excl) + s_warp[warp];
+  const unsigned below = (1u << lane) - 1u;
+  int done = 0;
+  for (int r0 = 0; r0 < kRounds && done < cnt; r0 += kBatch) {
+    unsigned ballot[kBatch];
+    int32_t v[kBatch][kPayloads];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int local = warp * kSeg + (r0 + u) * 32 + lane;
+      const bool f = s_flags[local] != 0;
+      ballot[u] = __ballot_sync(kFull, f);
+      if (f) {
+#pragma unroll
+        for (int q = 0; q < kPayloads; ++q)
+          v[u][q] = __ldg(p.in[q] + (base + local));
       }
-      if (lane < kWarps) s_pre[lane] = incl - v;
-      if (lane == kWarps - 1) s_tot = incl;
     }
-    __syncthreads();
-    if (f) {
-      const int64_t o = out + s_pre[warp] + lane_rank;
 #pragma unroll
-      for (int q = 0; q < kPayloads; ++q) p.out[q][o] = __ldg(p.in[q] + i);
+    for (int u = 0; u < kBatch; ++u) {
+      if ((ballot[u] >> lane) & 1u) {
+        const int64_t o = out + __popc(ballot[u] & below);
+#pragma unroll
+        for (int q = 0; q < kPayloads; ++q) p.out[q][o] = v[u][q];
+      }
+      const int c = __popc(ballot[u]);
+      out += c;
+      done += c;
     }
-    out += s_tot;
-    __syncthreads();  // s_pre / s_tot are rewritten next round
   }
 }
 
 template <int kPayloads>
-int launch_scatter(const void* flags, const void* const (&in)[kPayloads],
-                   void* const (&out)[kPayloads], int64_t k,
-                   const void* offsets, void* stream) {
-  if (k <= 0) return int(cudaErrorInvalidValue);
+int launch(const void* flags, const void* const (&in)[kPayloads],
+           void* const (&out)[kPayloads], int64_t k, void* ws,
+           int64_t ws_slots, void* n, void* stream) {
+  if (k <= 0 || k >= (int64_t(1) << 31)) return int(cudaErrorInvalidValue);
+  const int head = int(reinterpret_cast<uintptr_t>(flags) & 15u);
+  const int64_t tiles = (head + k + kTile - 1) / kTile;
+  if (ws_slots < tiles + 1) return int(cudaErrorInvalidValue);
   Payloads<kPayloads> p;
   for (int q = 0; q < kPayloads; ++q) {
     p.in[q] = static_cast<const int32_t*>(in[q]);
     p.out[q] = static_cast<int32_t*>(out[q]);
   }
-  const int64_t blocks = (k + kTile - 1) / kTile;
-  scatter_kernel<kPayloads><<<dim3(unsigned(blocks)), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(flags), p, k,
-      static_cast<const int64_t*>(offsets));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = cudaMemsetAsync(
+      ws, 0, size_t(tiles + 1) * sizeof(unsigned long long), s);
+  if (err != cudaSuccess) return int(err);
+  compact_kernel<kPayloads><<<dim3(unsigned(tiles)), kThreads, 0, s>>>(
+      static_cast<const uint8_t*>(flags), p, k, head, int(tiles),
+      static_cast<unsigned long long*>(ws), static_cast<int32_t*>(n));
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int lrzt_compact3_count(const void* flags, int64_t k,
-                                   void* counts, void* stream) {
-  if (k <= 0) return int(cudaErrorInvalidValue);
-  const int64_t blocks = (k + kTile - 1) / kTile;
-  count_kernel<<<dim3(unsigned(blocks)), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(flags), k, static_cast<int32_t*>(counts));
-  return int(cudaGetLastError());
-}
-
-extern "C" int lrzt_compact3_scatter(const void* flags, const void* a,
-                                     const void* b, const void* c,
-                                     int64_t k, const void* offsets,
-                                     void* out_a, void* out_b, void* out_c,
-                                     void* stream) {
+// K2.  `ws` holds `ws_slots` 8-byte slots, at least lrzt_compact_slots(k);
+// `n` is one int32 on the device.
+extern "C" int lrzt_compact3(const void* flags, const void* a, const void* b,
+                             const void* c, int64_t k, void* ws,
+                             int64_t ws_slots, void* out_a, void* out_b,
+                             void* out_c, void* n, void* stream) {
   const void* const in[3] = {a, b, c};
   void* const out[3] = {out_a, out_b, out_c};
-  return launch_scatter<3>(flags, in, out, k, offsets, stream);
+  return launch<3>(flags, in, out, k, ws, ws_slots, n, stream);
 }
 
-// K10: the same scatter with two payloads (its count pass is
-// lrzt_compact3_count: the flags alone are counted).
-extern "C" int lrzt_compact2_scatter(const void* flags, const void* a,
-                                     const void* b, int64_t k,
-                                     const void* offsets, void* out_a,
-                                     void* out_b, void* stream) {
+// K10: the same kernel with two payloads.
+extern "C" int lrzt_compact2(const void* flags, const void* a, const void* b,
+                             int64_t k, void* ws, int64_t ws_slots,
+                             void* out_a, void* out_b, void* n,
+                             void* stream) {
   const void* const in[2] = {a, b};
   void* const out[2] = {out_a, out_b};
-  return launch_scatter<2>(flags, in, out, k, offsets, stream);
+  return launch<2>(flags, in, out, k, ws, ws_slots, n, stream);
 }
 
-extern "C" int lrzt_compact3_tile() { return kTile; }
+// Workspace slots a call with 0 < k < 2**31 flags needs at any alignment:
+// the ticket counter and one descriptor a tile.
+extern "C" int lrzt_compact_slots(int64_t k) {
+  return int((k + 15 + kTile - 1) / kTile + 1);
+}

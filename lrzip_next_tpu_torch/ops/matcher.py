@@ -10,12 +10,15 @@ bucket, goes through:
 2. one anchor per stride-row (the leftmost row minimum), then one sort by
    (fpa, pos): each anchor's candidate is the nearest previous anchor with
    the same fingerprint;
-3. one sort by (dist, pos) chains same-distance seeds; chain ends ride to
-   their starts by a reverse segmented copy;
-4. K2 (``compact.compact_starts3``) compacts (start, dist, end) of every
-   chain; the record count ``n_raw`` is read back once, and every later
-   stage runs on exactly ``n_raw`` records (no cap, no redo);
-5. coarse chains (merged across gaps of up to ``_CHAIN_GAP`` bytes), the
+3. one sort by (dist, pos) chains same-distance seeds into the chain
+   start and chain end masks;
+4. K10 (``compact.compact_starts``) compacts (pos, dist) at the chain
+   starts and, in a second launch, pos at the chain ends: in (dist, pos)
+   order the i-th end closes the i-th start; the record count ``n_raw``
+   is read back once, and every later stage runs on exactly ``n_raw``
+   records (no cap, no redo);
+5. coarse chains (merged across gaps of up to ``_CHAIN_GAP`` bytes, their
+   ends carried by a reverse segmented copy over the records), the
    position order of the fine chains, and the prefix-max greedy selection
    (``torch.cummax``);
 6. one readback of the selected pieces and both coverage sums; the host
@@ -47,7 +50,7 @@ import torch
 from .. import runtime
 from ..format.constants import MINIMUM_MATCH
 from .anchor import HASH_W, INT32_MAX, anchor_fps, window_fps_pair
-from .compact import compact_masked, compact_starts, compact_starts3
+from .compact import compact_masked, compact_starts
 
 # pad value of positions and distances (matcher._I32_BIG)
 _I32_BIG = 0x7FFFFFF0
@@ -279,29 +282,33 @@ def derive_coarse(ps, ds, pe, gap_w: int):
     return order_chains(ps[seg_s], ds[seg_s], cend[seg_s])
 
 
-def compact_seeds(pos, cand, limit: int, gap: int):
-    """Chain records ``(starts, ends, dists)`` in position order at one
-    chain gap (matcher.compact_seeds / compact_seeds_pallas, without their
-    ``cap``): one (dist, pos) sort, K10 once for (pos, dist) at the chain
-    starts and once for pos at the chain ends, one read-back of the count.
-    Starts and ends are compacted in (dist, pos) order, where the i-th end
-    closes the i-th start; position order comes after."""
+def chain_records(pos, cand, limit: int, gap: int):
+    """Chain records ``(starts, dists, ends)`` in (dist, pos) order, where
+    the i-th end closes the i-th start: one (dist, pos) sort, K10 once for
+    (pos, dist) at the chain starts and once for pos at the chain ends,
+    one read-back of the count (matcher.compact_seeds_pallas, without its
+    ``cap``)."""
     start, is_end, sp, sd = dist_sorted_seed_starts(pos, cand, limit, gap)
     ps_c, ds_c, n = compact_starts(start, sp, sd)
+    # K10 takes two payloads: the ends' dists are compacted and dropped, an
+    # extra int32 read and write a chain (about 2 MB on a 64 MiB chunk)
     pe_c, _, _ = compact_starts(is_end, sp, sd)
     n_raw = int(n)
-    return order_chains(ps_c[:n_raw], ds_c[:n_raw], pe_c[:n_raw])
+    return ps_c[:n_raw], ds_c[:n_raw], pe_c[:n_raw]
+
+
+def compact_seeds(pos, cand, limit: int, gap: int):
+    """Chain records ``(starts, ends, dists)`` in position order at one
+    chain gap (matcher.compact_seeds / compact_seeds_pallas)."""
+    return order_chains(*chain_records(pos, cand, limit, gap))
 
 
 def compact_seeds_dual(pos, cand, limit: int, gap_v: int, gap_w: int):
     """Fine (gap_v) and coarse (gap_w) chain records, both in position
-    order, from one (dist, pos) sort and one K2 compaction
-    (matcher.compact_seeds_dual_pallas).  Reads the record count back."""
-    start, is_end, sp, sd = dist_sorted_seed_starts(pos, cand, limit, gap_v)
-    end_at = seg_end_copy(sp, is_end)
-    ps_c, ds_c, pe_c, n = compact_starts3(start, sp, sd, end_at)
-    n_raw = int(n)
-    ps_c, ds_c, pe_c = ps_c[:n_raw], ds_c[:n_raw], pe_c[:n_raw]
+    order (matcher.compact_seeds_dual_pallas): the fine records of
+    ``chain_records``, and the coarse ones derived from them.  K10 runs
+    twice; no segmented copy runs over the seed array."""
+    ps_c, ds_c, pe_c = chain_records(pos, cand, limit, gap_v)
     return (order_chains(ps_c, ds_c, pe_c),
             derive_coarse(ps_c, ds_c, pe_c, gap_w))
 
@@ -366,10 +373,11 @@ def _host(t: torch.Tensor) -> np.ndarray:
 class MatchJob:
     """The matcher for one chunk on ``device`` (port of ``TpuMatchJob``).
 
-    Construction uploads the chunk and queues the device stages up to the
-    K2 compaction; ``collect()`` reads the record count, finishes selection
-    on the device, reads the selected pieces back and finalizes tokens on
-    the host.  ``dev`` keeps the padded chunk on the device after
+    Construction uploads the chunk and queues the anchor stage (K1, the
+    row minimum, the candidate sort); ``collect()`` queues the chain stage
+    (the (dist, pos) sort, K10 twice), reads the record count, finishes
+    selection on the device, reads the selected pieces back and finalizes
+    tokens on the host.  ``dev`` keeps the padded chunk on the device after
     ``collect()`` for the device literal encode (None for a trivial
     chunk).  ``select=False`` walks the coarse chains directly (the JAX
     package's walk mode).  Stride 1 is the dense matcher: construction

@@ -643,3 +643,145 @@ def test_decompress_to_device_on_the_card(cuda):
         assert all(c.is_cuda and c.dtype == torch.uint8 for c in chunks)
         assert b"".join(c.cpu().numpy().tobytes() for c in chunks) == raw
         assert RK.decode_launches == k7 + (3 if method == "rans" else 0)
+
+
+# --- K2 and K10: the one-pass compaction of compact3.cu ---------------------
+
+_ONE_PASS_TILE = 8_192    # flags a block of compact3.cu takes
+_ONE_PASS_K = [1, 31, 32, _ONE_PASS_TILE - 1, _ONE_PASS_TILE,
+               _ONE_PASS_TILE + 1, 3 * 132 * _ONE_PASS_TILE + 7, 2**22 + 3]
+_DENSITIES = [0.0, 1e-4, 0.06, 0.5, 1.0]
+_ONE_PASS = {
+    "k2": (C.compact_starts3, C.compact_starts3_reference, 3,
+           lambda: C.launches),
+    "k10": (C.compact_starts, C.compact_starts_reference, 2,
+            lambda: C.starts_launches),
+}
+
+
+def _one_pass_inputs(kernel: str, k: int, density: float, seed: int, cuda,
+                     offset: int = 0):
+    """(flags, payloads) on the card, each a slice starting ``offset``
+    elements into a larger buffer."""
+    rng = np.random.default_rng(seed)
+    n = k + offset + 16
+    flags = torch.from_numpy(rng.random(n) < density).to(cuda)
+    vals = [torch.from_numpy(rng.integers(-2**31, 2**31, n, dtype=np.int64)
+                             .astype(np.int32)).to(cuda)
+            for _ in range(_ONE_PASS[kernel][2])]
+    return (flags[offset:offset + k],
+            [v[offset:offset + k] for v in vals])
+
+
+def _assert_one_pass_equal(kernel: str, out, flags, vals):
+    want = _ONE_PASS[kernel][1](flags, *vals)
+    n = int(want[-1])
+    assert n == int(flags.sum())
+    assert out[-1].is_cuda and out[-1].dtype == torch.int32 \
+        and out[-1].dim() == 0 and int(out[-1]) == n
+    for x, y in zip(out[:-1], want[:-1]):
+        assert x.shape == y.shape and torch.equal(x[:n], y[:n])
+
+
+@pytest.mark.parametrize("density", _DENSITIES)
+@pytest.mark.parametrize("k", _ONE_PASS_K)
+@pytest.mark.parametrize("kernel", ["k2", "k10"])
+def test_one_pass_kernel_equals_plain(cuda, kernel, k, density):
+    flags, vals = _one_pass_inputs(kernel, k, density, k, cuda)
+    fn, _, _, count = _ONE_PASS[kernel]
+    before = count()
+    out = fn(flags, *vals)
+    torch.cuda.synchronize()
+    assert count() == before + 1
+    _assert_one_pass_equal(kernel, out, flags, vals)
+
+
+@pytest.mark.parametrize("offset", range(1, 16))
+@pytest.mark.parametrize("kernel", ["k2", "k10"])
+def test_one_pass_kernel_takes_slices_at_any_byte(cuda, kernel, offset):
+    k = 3 * _ONE_PASS_TILE + 5
+    flags, vals = _one_pass_inputs(kernel, k, 0.5, offset, cuda, offset)
+    assert flags.data_ptr() % 16 == offset % 16
+    out = _ONE_PASS[kernel][0](flags, *vals)
+    torch.cuda.synchronize()
+    _assert_one_pass_equal(kernel, out, flags, vals)
+
+
+@pytest.mark.parametrize("kernel", ["k2", "k10"])
+def test_one_pass_back_to_back_and_on_a_side_stream(cuda, kernel):
+    """20 calls queued on one stream with no synchronise between them,
+    then one call on a side stream while the main stream runs another:
+    each has its own workspace."""
+    fn = _ONE_PASS[kernel][0]
+    k = 2 * 132 * _ONE_PASS_TILE + 99
+    inputs = [_one_pass_inputs(kernel, k, _DENSITIES[i % 5], 100 + i, cuda)
+              for i in range(21)]
+    torch.cuda.synchronize()
+    outs = [fn(f, *v) for f, v in inputs[:20]]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = fn(inputs[20][0], *inputs[20][1])
+    again = fn(inputs[0][0], *inputs[0][1])
+    torch.cuda.synchronize()
+    for (f, v), out in zip(inputs + inputs[:1], outs + [on_side, again]):
+        _assert_one_pass_equal(kernel, out, f, v)
+
+
+@pytest.mark.parametrize("kernel", ["k2", "k10"])
+def test_one_pass_is_one_kernel_and_at_most_one_memset(cuda, kernel):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    flags, vals = _one_pass_inputs(kernel, 4 * _ONE_PASS_TILE + 3, 0.06, 5,
+                                   cuda)
+    fn = _ONE_PASS[kernel][0]
+    fn(flags, *vals)                       # built and loaded before
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn(flags, *vals)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    kernels = [n for n in names if "compact_kernel" in n]
+    memsets = [n for n in names if "memset" in n.lower()]
+    assert len(kernels) == 3, names
+    assert len(memsets) <= 3 and len(kernels) + len(memsets) == len(names), \
+        names
+
+
+def test_one_pass_wrappers_raise_from_2_to_the_31_flags(cuda):
+    k = 1 << 31
+    flags = torch.empty(k, dtype=torch.bool, device=cuda)
+    x = torch.empty(k, dtype=torch.int32, device=cuda)
+    before = (C.launches, C.starts_launches)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        C.compact_starts(flags, x, x)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        C.compact_starts3(flags, x, x, x)
+    assert (C.launches, C.starts_launches) == before
+    del flags, x
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("stride", [2, 8, 32])
+def test_compact_seeds_dual_card_equals_cpu(cuda, stride):
+    """The chain stage on the card: K10 twice, K2 never, the CPU's fine
+    and coarse records."""
+    data = _repeating(300_000, stride)
+    padded = np.zeros(PM.bucket_size(len(data)), np.uint8)
+    padded[:len(data)] = data
+    t = torch.from_numpy(padded)
+    limit = len(data) - 31
+    gap = PM.verify_gap(stride)
+    seeds = PM.anchor_candidates_fporder(t.to(cuda), stride)
+    before = (C.starts_launches, C.launches)
+    got = PM.compact_seeds_dual(*seeds, limit, gap, PM._CHAIN_GAP)
+    assert (C.starts_launches, C.launches) == (before[0] + 2, before[1])
+    want = PM.compact_seeds_dual(*PM.anchor_candidates_fporder(t, stride),
+                                 limit, gap, PM._CHAIN_GAP)
+    assert len(want[0][0]) > 0 and len(want[1][0]) > 0
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert a.is_cuda and torch.equal(a.cpu(), b)
