@@ -18,7 +18,10 @@ Phases, in order; any failure exits nonzero before the last line:
    (joint_histogram), K5 (encode_scan), K6 (pack_plane) and K7
    (decode_scan) at the shapes of the 64 MiB chunk's literal stream, made
    from its real matcher tokens (level 7, ctx_bits 6; K4, K5 and K7 also
-   at ctx_bits 8), and K7 at 64 lanes; the replay kernels K8a
+   at ctx_bits 8; K5 and K7 also with their own device time under
+   ``torch.profiler``, and K7 with its cluster size), K7 at 64 lanes and
+   at every cluster size it launches (K = 1024 .. 16384 lanes of 1280
+   steps); the replay kernels K8a
    (ragged_concat), K8c (small_merge) and K8b (layered_pass) on the
    fragment tables that the device replay of the 64 MiB long-range chunk
    and of the 64 MiB pasted-pieces chunk hands them.  Beside each
@@ -287,6 +290,29 @@ def check_k1(data: np.ndarray, label: str) -> dict:
             "library_ms": None}
 
 
+def profiled_cuda_events(fn, label: str, reps: int = 5) -> list:
+    """The CUDA events that ``torch.profiler`` records over ``reps`` calls
+    of ``fn`` (after one call outside it).  The profiler drops events now
+    and then, at times a whole window's; a window that saw no CUDA event
+    at all is taken again, at most twice, and said so."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if ops:
+            return ops
+        log(f"  {label}: the profiler saw no CUDA event in window "
+            f"{attempt + 1}")
+    return []
+
+
 def one_pass_device(fn, label: str, reps: int = 5) -> float:
     """``fn`` calls a K2 or K10 wrapper once.  Under ``torch.profiler``,
     the calls must run at most one ``compact_kernel`` and at most one
@@ -294,16 +320,7 @@ def one_pass_device(fn, label: str, reps: int = 5) -> float:
     call of a few microseconds, so fewer count too); returns the kernel's
     device milliseconds, averaged over the kernels it saw (the wrapper's
     CUDA-event time also holds the host's work between the events)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ops = profiled_cuda_events(fn, label, reps)
     kernels = [e for e in ops if "compact_kernel" in e.name]
     memsets = [e for e in ops if "memset" in e.name.lower()]
     require(1 <= len(kernels) <= reps and len(memsets) <= reps
@@ -326,6 +343,21 @@ def one_pass_floors(call, m: int, label: str) -> dict:
         mask = torch.zeros(n, dtype=torch.bool, device="cuda")
         res[key] = one_pass_device(lambda: call(mask), f"{label}, {key}")
     return res
+
+
+def kernel_device_ms(fn, kernel: str, label: str, reps: int = 5) -> float:
+    """Device milliseconds of the CUDA kernel whose name holds ``kernel``,
+    averaged over the launches ``torch.profiler`` saw in ``reps`` calls of
+    ``fn`` (the wrapper's CUDA-event time also holds the host's work
+    between the events and, for K5, the launch that packs its table)."""
+    seen = [e for e in profiled_cuda_events(fn, label, reps)
+            if kernel in e.name]
+    require(1 <= len(seen) <= reps,
+            f"{label}: {reps} calls ran {len(seen)} {kernel} kernels")
+    ms = sum(e.device_time_total for e in seen) / 1e3 / len(seen)
+    log(f"  {label}: {kernel} alone {ms:.4f} ms a call on the device "
+        f"(torch.profiler, {len(seen)} launches seen)")
+    return ms
 
 
 def check_k2(data: np.ndarray, label: str) -> dict:
@@ -538,8 +570,16 @@ def check_k7(words, states, freqs, n: int, ctx_bits: int, t_len: int,
             f"K7 does not return the encoded block at {label}")
     require(bool((xf == RK.L_INIT).all()),
             f"K7 final states are not all 2^16 at {label}")
+    res["cluster"] = RK.decode_cluster(k, ctx_bits)
+    require(k <= 1024 or res["cluster"] >= 2,
+            f"K7 at {k} lanes runs on {res['cluster']} CTA")
+    res["device_ms"] = kernel_device_ms(
+        lambda: RK.decode_scan(words, states, freqs, n, ctx_bits, t_len),
+        "decode_kernel", f"K7 ctx_bits {ctx_bits} {label}")
     log(f"  K7: {n} symbols from {nw} words in {t_len} dependent steps of "
-        f"{k} lanes: {n / res['ms'] / 1e6:.4f} GB/s of output")
+        f"{k} lanes on a cluster of {res['cluster']} CTAs: "
+        f"{n / res['ms'] / 1e6:.4f} GB/s of output; "
+        f"{res['device_ms'] * 1e3 / t_len:.4f} us a step on the device")
     res["t_len"], res["lanes"] = t_len, k
     return res
 
@@ -559,6 +599,29 @@ def check_k7_small() -> float:
     res = check_k7(packed[:int(n_words)].contiguous(), states, freqs, n, 6,
                    t_len, lit, f"K={k} T={t_len}")
     return res["ms"] * 1e3 / t_len
+
+
+def check_k7_clusters(t_len: int = 1280) -> None:
+    """K7 at every cluster size it launches: K = 1024 (one CTA), 2048,
+    4096, 8192 and 16384 lanes of ``t_len`` steps, ctx_bits 6, each on the
+    card's own encode of seeded skewed bytes.  The lines show how the step
+    grows with the cluster size C."""
+    from lrzip_next_tpu_torch.ops import rans
+    from lrzip_next_tpu_torch.ops import rans_kernels as RK
+    from lrzip_next_tpu_torch.ops import streampack as SP
+    block = torch.from_numpy(skewed_symbols(16384 * t_len)).cuda()
+    for k in (1024, 2048, 4096, 8192, 16384):
+        n = k * t_len
+        lit = block[:n].contiguous()
+        freqs = rans.quantize_freqs(RK.joint_histogram(lit, n, 6, 1, k))
+        states, plane = RK.encode_scan(lit, n, freqs, 6, k)
+        packed, n_words = SP.pack_plane(plane, n)
+        res = check_k7(packed[:int(n_words)].contiguous(), states, freqs, n,
+                       6, t_len, lit, f"K={k} T={t_len}")
+        log(f"  K7 cluster sweep: K={k} C={res['cluster']}: kernel "
+            f"{res['ms']:.4f} ms, device {res['device_ms']:.4f} ms, "
+            f"{res['device_ms'] * 1e3 / t_len:.4f} us a step")
+    torch.cuda.empty_cache()
 
 
 def replay_tables(corpus: np.ndarray):
@@ -714,6 +777,9 @@ def check_literal_kernels(corpus64: np.ndarray) -> dict:
                                              k),
             lambda a, b: max(max_err(a[0], b[0]), max_err(a[1], b[1])),
             bound(cap + 4 * cells + 4 * cap + 4 * k, 12 * n_lit))
+        enc["device_ms"] = kernel_device_ms(
+            lambda: RK.encode_scan(lit, n_lit, freqs, ctx_bits, k),
+            "encode_kernel", f"K5 ctx_bits {ctx_bits} {label}")
         states, plane = enc["out"]
         packed, n_words = SP.pack_plane(plane, cap)
         dec = check_k7(packed[:int(n_words)].contiguous(), states, freqs,
@@ -746,7 +812,9 @@ def phase_kernels(corpus64: np.ndarray, pasted64: np.ndarray) -> dict:
     log(f"  K7 dependent chain: {step_us:.4f} us a step at 64 lanes; the "
         f"64 MiB chunk's {res['k7']['t_len']} steps need at least "
         f"{step_us * res['k7']['t_len'] / 1e3:.4f} ms, and take "
-        f"{res['k7']['ms']:.4f} ms at {res['k7']['lanes']} lanes")
+        f"{res['k7']['ms']:.4f} ms at {res['k7']['lanes']} lanes on a "
+        f"cluster of {res['k7']['cluster']} CTAs")
+    check_k7_clusters()
     torch.cuda.empty_cache()
     # the layered passes exist only where the plan is layered: K8b's row
     # comes from the long-range chunk if its plan has them, else from the

@@ -13,9 +13,11 @@ of ``T = len(lit) // K`` bytes each, lane ``l`` at ``lit[l*T : (l+1)*T]``
   positions of every lane (``csrc/rans_hist.cu``).
 - ``encode_scan``: the K-lane rANS encode, run from ``t = T-1`` down to
   0: states start at 2^16; a lane whose state ``x >= f << 20`` emits its
-  low 16 bits and shifts; then ``x = (x // f) * M + cum + x % f``.
-  Returns the final states (int32 holding the uint32 bit patterns) and a
-  (T, K) int32 plane of ``word | flag << 16`` (``csrc/rans_encode.cu``).
+  low 16 bits and shifts; then ``x = (x // f) * M + cum + x % f``, the
+  quotient taken as a multiply by a reciprocal (``reciprocals``,
+  ``divide_by_reciprocal``).  Returns the final states (int32 holding the
+  uint32 bit patterns) and a (T, K) int32 plane of ``word | flag << 16``
+  (``csrc/rans_encode.cu``).
 
 - ``decode_scan``: the K-lane rANS decode, run from ``t = 0`` up to
   T-1 on the stream of 16-bit words in consumption order.  At a real
@@ -25,7 +27,9 @@ of ``T = len(lit) // K`` bytes each, lane ``l`` at ``lit[l*T : (l+1)*T]``
   takes one word, ``x = x << 16 | word``, and the lanes that do so in one
   step take consecutive words in lane order.  A word past the end of the
   stream reads as 0.  Returns the (K*T,) uint8 block (lane-major, 0 at
-  padding positions) and the final states (``csrc/rans_decode.cu``).
+  padding positions) and the final states (``csrc/rans_decode.cu``; on
+  the card the lanes are spread over a thread-block cluster of
+  ``decode_cluster(k, ctx_bits)`` CTAs).
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 version.  Counterparts of ``lrzip_next_tpu/ops/rans_pallas.py``
@@ -36,6 +40,8 @@ and ``rans._decode_scan``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -117,20 +123,51 @@ def joint_histogram(lit: torch.Tensor, n: int, ctx_bits: int, srate: int,
 
 def packed_table(freqs: torch.Tensor) -> torch.Tensor:
     """(C, 256) frequencies -> int32 ``cum * M + (f - 1)`` per entry
-    (< 2^24), the one table load K5 makes per symbol."""
+    (< 2^24), the one table load K5 makes per symbol (the kernel builds it
+    on the card in a first launch)."""
     f = freqs.to(torch.int64)
     cum = torch.cumsum(f, -1) - f
     return (cum * M + f - 1).to(torch.int32).contiguous()
 
 
+def reciprocals(device) -> torch.Tensor:
+    """(4096, 2) int32 table of K5's division, built on ``device``: row
+    f - 1 holds the low 32 bits of ``R = ceil(2^64 / f)`` and R's high 32
+    bits less one (uint32 bit patterns), so that f = 1 (R = 2^64) fits."""
+    f = torch.arange(1, M + 1, dtype=torch.int64, device=device)
+    # floor((2^64 - 1) / f) = q_hi * 2^32 + q_lo, by 32-bit long division
+    q_hi = _U32 // f
+    q_lo = (((_U32 % f) << 32) | _U32) // f
+    lo = q_lo + 1                       # R = floor((2^64 - 1) / f) + 1
+    hi = q_hi + (lo >> 32)
+    return _to_i32(torch.stack([lo & _U32, hi - 1], 1)).contiguous()
+
+
+def divide_by_reciprocal(x: torch.Tensor, f: torch.Tensor,
+                         rcp: torch.Tensor):
+    """``(x // f, x % f)`` as K5 computes them, for int64 tensors with
+    ``0 <= x < f * 2^20`` and ``1 <= f <= 4096``: ``q = (x * R) >> 64``
+    with R from ``reciprocals``, taken as the kernel takes it,
+    ``(x * (hi - 1) + x + umulhi(x, lo)) >> 32``; every product here stays
+    below 2^63 in that range."""
+    r = rcp[f - 1].to(torch.int64) & _U32
+    lo, hi1 = r[..., 0], r[..., 1]
+    # umulhi(x, lo) = (x * lo) >> 32, in 16-bit halves of lo
+    p = (x * (lo >> 16) + ((x * (lo & 0xFFFF)) >> 16)) >> 16
+    q = (x * hi1 + x + p) >> 32
+    return q, x - q * f
+
+
 def encode_scan_reference(lit: torch.Tensor, n: int, freqs: torch.Tensor,
                           ctx_bits: int, k: int):
     """Plain PyTorch K5: a Python loop over the T span positions on (K,)
-    vectors, uint32 values held in int64 and masked."""
+    vectors, uint32 values held in int64 and masked, dividing as the
+    kernel does (``divide_by_reciprocal``)."""
     spans = _lanes(lit, k)
     t_len = spans.shape[1]
     idx_all = _contexts(spans, ctx_bits) * 256 + spans
     tab = packed_table(freqs).to(torch.int64).reshape(-1)
+    rcp = reciprocals(lit.device)
     base = torch.arange(k, device=lit.device) * t_len
     x = torch.full((k,), L_INIT, dtype=torch.int64, device=lit.device)
     plane = torch.empty((t_len, k), dtype=torch.int32, device=lit.device)
@@ -141,7 +178,8 @@ def encode_scan_reference(lit: torch.Tensor, n: int, freqs: torch.Tensor,
         valid = base + t < n
         e = valid & (x >= ((f << 20) & _U32))
         x1 = torch.where(e, x >> 16, x)
-        x2 = ((x1 // f) * M + cs + x1 % f) & _U32
+        q, rem = divide_by_reciprocal(x1, f, rcp)
+        x2 = (q * M + cs + rem) & _U32
         plane[t] = (torch.where(e, x & 0xFFFF, 0)
                     | (e.to(torch.int64) << 16)).to(torch.int32)
         x = torch.where(valid, x2, x1)
@@ -162,22 +200,38 @@ def encode_scan(lit: torch.Tensor, n: int, freqs: torch.Tensor,
     if lit.device.type == "cpu":
         return encode_scan_reference(lit, n, freqs, ctx_bits, k)
     t_len = lit.shape[0] // k
-    tab = packed_table(freqs)
+    freqs = freqs.contiguous()
+    tab = torch.empty((c, 256), dtype=torch.int32, device=lit.device)
+    rcp = _device_reciprocals(lit.device)
     states = torch.empty(k, dtype=torch.int32, device=lit.device)
     plane = torch.empty((t_len, k), dtype=torch.int32, device=lit.device)
     lib = _build.library()
     _build.check(lib.lrzt_rans_encode(
-        lit.data_ptr(), t_len, k, n, ctx_bits, tab.data_ptr(),
-        states.data_ptr(), plane.data_ptr(),
+        lit.data_ptr(), t_len, k, n, ctx_bits, freqs.data_ptr(),
+        tab.data_ptr(), rcp.data_ptr(), states.data_ptr(), plane.data_ptr(),
         _build.stream_ptr(lit.device)), "rans_encode")
     encode_launches += 1
     return states, plane
 
 
+_rcp_cache = {}
+
+
+def _device_reciprocals(device) -> torch.Tensor:
+    """``reciprocals`` on a CUDA device, built there once per device (the
+    table depends on nothing but M)."""
+    key = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if key not in _rcp_cache:
+        _rcp_cache[key] = reciprocals(torch.device("cuda", key))
+    return _rcp_cache[key]
+
+
 def cum_table(freqs: torch.Tensor) -> torch.Tensor:
     """(C, 256) frequencies -> (C, 257) int16 cumulative table: entry s
     is the sum of the row's first s frequencies (the last is M), the
-    table K7 searches."""
+    table K7 searches (each CTA of the kernel builds it in shared memory
+    from the frequencies)."""
     cum = torch.cumsum(freqs.to(torch.int64), -1)
     zero = torch.zeros_like(cum[:, :1])
     return torch.cat([zero, cum], 1).to(torch.int16).contiguous()
@@ -265,13 +319,40 @@ def decode_scan(words: torch.Tensor, states: torch.Tensor,
     if words.device.type == "cpu":
         return decode_scan_reference(words, states, freqs, n, ctx_bits,
                                      t_len)
-    cum = cum_table(freqs)
+    ctas = decode_cluster(k, ctx_bits, words.device)
     plane = torch.empty(k * t_len, dtype=torch.uint8, device=words.device)
     xf = torch.empty(k, dtype=torch.int32, device=words.device)
     lib = _build.library()
     _build.check(lib.lrzt_rans_decode(
-        words.data_ptr(), words.shape[0], states.data_ptr(), cum.data_ptr(),
-        n, ctx_bits, t_len, k, plane.data_ptr(), xf.data_ptr(),
+        words.data_ptr(), words.shape[0], states.data_ptr(), freqs.data_ptr(),
+        n, ctx_bits, t_len, k, ctas, plane.data_ptr(), xf.data_ptr(),
         _build.stream_ptr(words.device)), "rans_decode")
     decode_launches += 1
     return plane, xf
+
+
+_cluster_cache = {}
+
+
+def decode_cluster(k: int, ctx_bits: int, device=None) -> int:
+    """The cluster size C that K7 takes for ``k`` lanes on a CUDA device:
+    1 for K <= 1024 (one CTA of K threads); K / 1024 (one lane a thread)
+    where that many CTAs of 1024 threads with the table in shared memory
+    can be resident at once; else 8 (two lanes a thread) at K = 16384.
+    Raises ``RuntimeError`` where no such cluster can be scheduled: there is
+    no single-CTA K7 for K > 1024."""
+    device = torch.device("cuda") if device is None else device
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    key = (index, k, ctx_bits)
+    if key not in _cluster_cache:
+        ctas = ctypes.c_int(0)
+        _build.check(_build.library().lrzt_rans_decode_cluster(
+            k, ctx_bits, ctypes.byref(ctas)), "rans_decode_cluster")
+        if ctas.value == 0:
+            raise RuntimeError(
+                f"decode_scan: no thread-block cluster for {k} lanes at "
+                f"ctx_bits {ctx_bits} can be resident on "
+                f"{torch.cuda.get_device_name(index)}")
+        _cluster_cache[key] = ctas.value
+    return _cluster_cache[key]

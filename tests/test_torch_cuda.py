@@ -236,6 +236,106 @@ def test_k7_kernel_equals_plain(cuda, ctx_bits, t, k):
         assert bool((xf == RK.L_INIT).all())
 
 
+@pytest.mark.parametrize("k", [64, 1024, 2048, 4096, 8192, 16384])
+@pytest.mark.parametrize("ctx_bits", [0, 4, 6, 8])
+def test_k7_on_every_cluster_size(cuda, ctx_bits, k):
+    """One CTA up to K = 1024, then K / 1024 CTAs of one lane a thread (8
+    of two lanes a thread where 16 do not fit at K = 16384); T = 13 (byte
+    stores) and 16 (word stores), a partial last lane: K7 decodes what K5
+    encoded, bit-equal to its plain version."""
+    ctas = RK.decode_cluster(k, ctx_bits)
+    want = 1 if k <= 1024 else k // 1024
+    assert ctas == want or (k == 16384 and ctas == 8)
+    assert k // ctas <= 2048
+    rng = np.random.default_rng(ctx_bits * 13 + k)
+    for t in (13, 16):
+        n = t * k - 7
+        lit, freqs, states, words = _encoded(rng, t, k, n, ctx_bits, cuda)
+        plane, xf = _k7_equals_plain(words, states, freqs, n, ctx_bits, t)
+        assert torch.equal(plane[:n], lit[:n])
+        assert bool((xf == RK.L_INIT).all())
+
+
+@pytest.mark.parametrize("k", [2048, 16384])
+@pytest.mark.parametrize("fault", ["flipped_word", "short_stream",
+                                   "empty_words"])
+def test_k7_cluster_on_corrupt_streams(cuda, fault, k):
+    """A damaged stream: the cluster kernel follows the plain version bit
+    for bit, reads nothing past the words, and ends off 2^16."""
+    rng = np.random.default_rng(k + len(fault))
+    t, ctx_bits = 9, 6
+    n = t * k - 3
+    _, freqs, states, words = _encoded(rng, t, k, n, ctx_bits, cuda)
+    if fault == "flipped_word":
+        words = words.clone()
+        words[words.shape[0] // 3] ^= 0x0100
+    elif fault == "short_stream":
+        words = words[:words.shape[0] // 2].contiguous()
+    else:
+        words = words[:0].contiguous()
+    _, xf = _k7_equals_plain(words, states, freqs, n, ctx_bits, t)
+    assert not bool((xf == RK.L_INIT).all())
+
+
+def test_k7_back_to_back_and_on_a_side_stream(cuda):
+    """20 calls back to back on the current stream, then one on a side
+    stream: every result equal to the plain version's."""
+    rng = np.random.default_rng(20)
+    t, k, ctx_bits = 40, 16384, 6
+    n = t * k - 11
+    lit, freqs, states, words = _encoded(rng, t, k, n, ctx_bits, cuda)
+    ref = RK.decode_scan_reference(words, states, freqs, n, ctx_bits, t)
+    outs = [RK.decode_scan(words, states, freqs, n, ctx_bits, t)
+            for _ in range(20)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        outs.append(RK.decode_scan(words, states, freqs, n, ctx_bits, t))
+    torch.cuda.synchronize()
+    for plane, xf in outs:
+        assert torch.equal(plane, ref[0]) and torch.equal(xf, ref[1])
+    assert torch.equal(ref[0][:n], lit[:n])
+
+
+@pytest.mark.parametrize("layout", ["aligned", "unaligned", "short_tail"])
+@pytest.mark.parametrize("ctx_bits", [0, 4, 6, 8])
+def test_k5_group_loads(cuda, ctx_bits, layout):
+    """T % 16 == 0 on a 16-byte aligned block (16-byte loads), the same
+    block one byte off alignment and T % 16 != 0 (byte loads), each with a
+    partial last lane: K5 equals its plain version and K7 decodes it."""
+    t = 21 if layout == "short_tail" else 48
+    k = 2048
+    rng = np.random.default_rng(ctx_bits * 3 + t + len(layout))
+    n = t * k - 5
+    block = torch.from_numpy(_lane_block(rng, t, k)).to(cuda)
+    block[n:] = 0
+    if layout == "unaligned":
+        buf = torch.zeros(t * k + 1, dtype=torch.uint8, device=cuda)
+        buf[1:] = block
+        lit = buf[1:]
+        assert lit.data_ptr() % 16 == 1
+    else:
+        lit = block
+    freqs = R.quantize_freqs(RK.joint_histogram_reference(
+        lit, n, ctx_bits, 1, k))
+    before = RK.encode_launches
+    states, plane = RK.encode_scan(lit, n, freqs, ctx_bits, k)
+    torch.cuda.synchronize()
+    assert RK.encode_launches == before + 1
+    rs, rp = RK.encode_scan_reference(lit, n, freqs, ctx_bits, k)
+    assert torch.equal(states, rs)
+    assert torch.equal(plane, rp)
+    packed, n_words = SP.pack_plane(plane, t * k)
+    words = packed[:int(n_words)].contiguous()
+    out, xf = _k7_equals_plain(words, states, freqs, n, ctx_bits, t)
+    assert torch.equal(out[:n], lit[:n])
+    assert bool((xf == RK.L_INIT).all())
+
+
+def test_k5_reciprocals_on_the_card_equal_the_cpu_table(cuda):
+    assert torch.equal(RK.reciprocals(cuda).cpu(), RK.reciprocals("cpu"))
+
+
 def _random_table(rng, ctx_bits: int, cuda) -> torch.Tensor:
     counts = rng.integers(0, 500, (1 << ctx_bits, 256)) ** 2
     return R.quantize_freqs(torch.from_numpy(counts.astype(np.int32))
