@@ -14,7 +14,8 @@ Phases, in order; any failure exits nonzero before the last line:
    bit for bit, with both times (median of 5, CUDA events): K1
    (anchor_fps) and K2 (compact_starts3, the one-pass compaction; its
    own check is the only run that launches it) at the matcher's shapes
-   for a 64 MiB and a 256 MiB chunk (stride 8); K3 (pack_stream), K4
+   for a 64 MiB and a 256 MiB chunk (stride 8; K1 also bit for bit at
+   strides 2, 4, 16 and 32 on the 64 MiB chunk); K3 (pack_stream), K4
    (joint_histogram), K5 (encode_scan), K6 (pack_plane) and K7
    (decode_scan) at the shapes of the 64 MiB chunk's literal stream, made
    from its real matcher tokens (level 7, ctx_bits 6; K4, K5 and K7 also
@@ -26,10 +27,12 @@ Phases, in order; any failure exits nonzero before the last line:
    fragment tables that the device replay of the 64 MiB long-range chunk
    and of the 64 MiB pasted-pieces chunk hands them.  Beside each
    kernel's time stand its bound (see ``bound``) and, where one PyTorch
-   call computes the same function, that call's time and the ratio.  K2
-   and K10 also run under ``torch.profiler``: at most one kernel and one
-   memset a call, and the kernel's own device time, also on an all-clear
-   mask and on one tile (``one_pass_floors``);
+   call computes the same function, that call's time and the ratio.  K2,
+   K10 and K3 also run under ``torch.profiler``: at most one kernel and
+   one memset a call, and the kernel's own device time (K2 and K10 also
+   on an all-clear mask and on one tile, ``one_pass_floors``); K1's device
+   time too.  Every row whose device time the profiler measured carries
+   it as ``dev_ms``;
 4. the slice: ``lrzip_next_tpu_torch.compress`` of the 64 MiB long-range
    corpus with ``method="rans"`` (the matcher's K1 and K10, twice a
    chunk for the chain starts and ends, and the device literal encode:
@@ -154,6 +157,22 @@ def compaction_bound(mask: torch.Tensor, payloads, n: int,
     return res
 
 
+def byte_compaction_bound(mask: torch.Tensor, vals: torch.Tensor, cap: int,
+                          int_ops: int) -> dict:
+    """``bound`` of K3, by the rule of ``compaction_bound``: the flags
+    once, the uint8 values only in the 32-byte sectors that hold an
+    element at a set flag (counted from this run's mask and the values'
+    address), and the cap-sized block and the count written.
+    ``bound_ms_all_payload`` charges every value byte."""
+    m = mask.shape[0]
+    idx = torch.nonzero(mask).squeeze(1)
+    sectors = int(torch.unique_consecutive(
+        (idx + vals.data_ptr()) // 32).numel())
+    res = bound(m + 32 * sectors + cap + 4, int_ops)
+    res["bound_ms_all_payload"] = bound(2 * m + cap + 4, int_ops)["bound_ms"]
+    return res
+
+
 def text_blob() -> np.ndarray:
     srcs = sorted(ROOT.glob("lrzip_next_tpu/**/*.py")) + \
         sorted(ROOT.glob("lrzip_next_tpu/runtime/csrc/*.cpp"))
@@ -261,33 +280,45 @@ def padded_on_card(data: np.ndarray) -> torch.Tensor:
     return padded
 
 
-def check_k1(data: np.ndarray, label: str) -> dict:
+def check_k1(data: np.ndarray, label: str, stride: int = STRIDE,
+             timed: bool = True) -> dict:
+    """K1 against its plain version at ``stride``; with ``timed``, also its
+    times, its device time and its bound."""
     from lrzip_next_tpu_torch.ops.anchor import anchor_fps, \
         anchor_fps_reference
     padded = padded_on_card(data)
     nb = padded.shape[0]
-    ma = ((nb - 31) // STRIDE) * STRIDE
-    fpa, fpb = anchor_fps(padded, STRIDE, ma)
+    ma = ((nb - 31) // stride) * stride
+    fpa, fpb = anchor_fps(padded, stride, ma)
     torch.cuda.synchronize()
-    rfpa, rfpb = anchor_fps_reference(padded, STRIDE, ma)
+    rfpa, rfpb = anchor_fps_reference(padded, stride, ma)
     torch.cuda.synchronize()
     err = max(int((fpa.long() - rfpa.long()).abs().max()),
               int((fpb.long() - rfpb.long()).abs().max()))
     require(err == 0 and torch.equal(fpa, rfpa) and torch.equal(fpb, rfpb),
-            f"K1 differs from its plain version at {label}")
-    ms = cuda_ms(lambda: anchor_fps(padded, STRIDE, ma))
-    plain_ms = cuda_ms(lambda: anchor_fps_reference(padded, STRIDE, ma))
+            f"K1 differs from its plain version at {label}, stride {stride}")
     anchors = int((fpa != 0x7FFFFFFF).sum())
+    del rfpa, rfpb
+    if not timed:
+        log(f"K1 anchor_fps {label}, stride {stride}: n={nb} ma={ma} "
+            f"anchors={anchors} bit-equal")
+        return {"max_abs_err": err}
+    ms = cuda_ms(lambda: anchor_fps(padded, stride, ma))
+    plain_ms = cuda_ms(lambda: anchor_fps_reference(padded, stride, ma))
+    device_ms = kernel_device_ms(lambda: anchor_fps(padded, stride, ma),
+                                 "anchor_fps_kernel", f"K1 {label}")
     # bytes: the chunk in, two int32 fingerprints a window out; operations
     # a window: 12 for the two tree hashes (6 multiply-adds), 2 * (stride
     # / 2) + 2 for the centred-window minimum, compare and select
-    bnd = bound(nb + 8 * ma, ma * (12 + STRIDE + 2))
-    log(f"K1 anchor_fps {label}: n={nb} ma={ma} anchors={anchors} "
-        f"bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    bnd = bound(nb + 8 * ma, ma * (12 + stride + 2))
+    log(f"K1 anchor_fps {label}, stride {stride}: n={nb} ma={ma} "
+        f"anchors={anchors} bit-equal; kernel {ms:.4f} ms, device "
+        f"{device_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
-        f"({bnd['bound_bytes']} bytes); no single library call")
+        f"({bnd['bound_bytes']} bytes); bound / device "
+        f"{bnd['bound_ms'] / device_ms:.4f}; no single library call")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
-            "library_ms": None}
+            "library_ms": None, "device_ms": device_ms}
 
 
 def profiled_cuda_events(fn, label: str, reps: int = 5) -> list:
@@ -313,15 +344,18 @@ def profiled_cuda_events(fn, label: str, reps: int = 5) -> list:
     return []
 
 
-def one_pass_device(fn, label: str, reps: int = 5) -> float:
-    """``fn`` calls a K2 or K10 wrapper once.  Under ``torch.profiler``,
-    the calls must run at most one ``compact_kernel`` and at most one
-    memset each on the device and nothing else (the profiler may miss a
-    call of a few microseconds, so fewer count too); returns the kernel's
-    device milliseconds, averaged over the kernels it saw (the wrapper's
-    CUDA-event time also holds the host's work between the events)."""
+def one_pass_device(fn, label: str, reps: int = 5,
+                    kernel: str = "compact_kernel") -> float:
+    """``fn`` calls a one-pass compaction's wrapper once (K2 or K10:
+    ``compact_kernel``; K3: ``pack_bytes_kernel``).  Under
+    ``torch.profiler``, the calls must run at most one ``kernel`` and at
+    most one memset each on the device and nothing else (the profiler may
+    miss a call of a few microseconds, so fewer count too); returns the
+    kernel's device milliseconds, averaged over the kernels it saw (the
+    wrapper's CUDA-event time also holds the host's work between the
+    events)."""
     ops = profiled_cuda_events(fn, label, reps)
-    kernels = [e for e in ops if "compact_kernel" in e.name]
+    kernels = [e for e in ops if kernel in e.name]
     memsets = [e for e in ops if "memset" in e.name.lower()]
     require(1 <= len(kernels) <= reps and len(memsets) <= reps
             and len(kernels) + len(memsets) == len(ops),
@@ -739,15 +773,28 @@ def check_literal_kernels(corpus64: np.ndarray) -> dict:
     def same_pack(a, b):
         return max(max_err(a[1], b[1]), max_err(a[0], b[0]))
 
-    # K3 bytes: the chunk and its mask in, the zero-padded block and the
-    # count out; operations: flag test, rank and slot per position, one
-    # move per literal
+    # K3 bytes: the mask once, the chunk's bytes in the 32-byte sectors
+    # that hold a literal, the zero-padded block and the count out;
+    # operations: flag test, rank and slot per position, one move per
+    # literal
+    zero_launches()
+    SP.pack_stream(job.dev, mask, cap)
+    torch.cuda.synchronize()
+    once = read_launches()
+    require(once["k3"] == 1 and sum(once.values()) == 1,
+            f"pack_stream launched {once}, not K3 once")
+    k3_bound = byte_compaction_bound(mask, job.dev, cap, 3 * npos + n_lit)
     res = {"k3": timed_pair(
         "K3 pack_stream", "64 MiB chunk",
         lambda: SP.pack_stream(job.dev, mask, cap),
         lambda: SP.pack_stream_reference(job.dev, mask, cap),
-        same_pack, bound(2 * npos + cap + 4, 3 * npos + n_lit),
+        same_pack, k3_bound,
         lambda: torch.masked_select(job.dev, mask), "torch.masked_select")}
+    res["k3"]["device_ms"] = one_pass_device(
+        lambda: SP.pack_stream(job.dev, mask, cap), "K3 64 MiB chunk",
+        kernel="pack_bytes_kernel")
+    log(f"  K3: every value byte {k3_bound['bound_ms_all_payload']:.4f} ms; "
+        f"bound / device {k3_bound['bound_ms'] / res['k3']['device_ms']:.4f}")
     lit = res["k3"]["out"][0]
     require(int(res["k3"]["out"][1]) == n_lit, "K3 count != n_lit")
     rows = max(t_len // srate, 1)
@@ -805,6 +852,10 @@ def check_literal_kernels(corpus64: np.ndarray) -> dict:
 
 
 def phase_kernels(corpus64: np.ndarray, pasted64: np.ndarray) -> dict:
+    # K1 at every stride: its halo and window logic depend on h
+    for stride in (2, 4, 16, 32):
+        check_k1(corpus64, "64 MiB", stride, timed=False)
+    torch.cuda.empty_cache()
     res = {"k1": check_k1(corpus64, "64 MiB"),
            "k2": check_k2(corpus64, "64 MiB"),
            **check_literal_kernels(corpus64)}
@@ -1379,6 +1430,9 @@ def main() -> int:
         ("compact_starts", "lrzip_next_tpu_torch/ops/csrc/compact3.cu",
          "lrzip_next_tpu/ops/compact_pallas.py:291", "k10"),
     ]
+    for r in kern.values():   # the profiler's device time, where measured
+        if "device_ms" in r:
+            r["dev_ms"] = r["device_ms"]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[key], **kern[key]}

@@ -1,8 +1,9 @@
 // K2 and K10: order-preserving compaction of three (K2) or two (K10) int32
 // payloads at flagged positions, plus the count, in ONE launch: a
 // single-pass compaction with a decoupled look-back (Merrill and
-// Garland's scan, written out here).  The payload count is a template
-// parameter of the one kernel.
+// Garland's scan; the ticket, the descriptors, load16 and the look-back
+// are lookback.cuh's, shared with K3 in streampack.cu).  The payload count
+// is a template parameter of the one kernel.
 //
 // Replaces: lrzip_next_tpu/ops/compact_pallas.py : compact_starts3_pallas
 // (kernel _compact_kernel3) and compact_starts_pallas (kernel
@@ -31,9 +32,9 @@
 //      flags;
 //   3. publish, then look back: the block's aggregate goes into its tile
 //      descriptor at once (status and value in one 64-bit word, one
-//      store after a __threadfence(), so no reader sees a status with a
-//      stale value); warp 0 then reads the descriptors of up to 32
-//      predecessors at a time, spins while any of them is unset, sums
+//      store, so no reader sees a status with a stale value); warp 0
+//      then reads the descriptors of up to 32 predecessors at a time,
+//      spins while any of them is unset, sums
 //      aggregates back to the nearest inclusive prefix, and publishes its
 //      own inclusive prefix.  The tile that holds element k-1 writes it
 //      to *n;
@@ -59,7 +60,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lookback.cuh"
+
 namespace {
+
+using lookback::kFull;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -67,81 +72,12 @@ constexpr int kTile = 8192;                // flags a block
 constexpr int kSeg = kTile / kWarps;       // flags a warp
 constexpr int kRounds = kSeg / 32;         // ballot rounds a warp
 constexpr int kBatch = 8;                  // rounds whose loads overlap
-constexpr unsigned kFull = 0xFFFFFFFFu;
-// descriptor: status in the high word (0 unset), value in the low word
-constexpr unsigned long long kAggregate = 1ull << 32;
-constexpr unsigned long long kPrefix = 2ull << 32;
 
 template <int kPayloads>
 struct Payloads {
   const int32_t* in[kPayloads];
   int32_t* out[kPayloads];
 };
-
-__device__ __forceinline__ int nonzero_bytes(unsigned w) {
-  // bit 7 of a byte of t is set iff that byte of w is nonzero
-  const unsigned t = ((w & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | w;
-  return __popc(t & 0x80808080u);
-}
-
-// 16 flags from element e on; flags outside [0, k) read as 0.  `flags + e`
-// is 16-byte aligned whenever the vector lies inside [0, k).
-__device__ __forceinline__ uint4 load16(const uint8_t* __restrict__ flags,
-                                        int64_t e, int64_t k) {
-  if (e >= 0 && e + 16 <= k)
-    return __ldg(reinterpret_cast<const uint4*>(flags + e));
-  unsigned w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int64_t i = e + j;
-    if (i >= 0 && i < k && flags[i] != 0) w[j >> 2] |= 1u << (8 * (j & 3));
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-__device__ __forceinline__ void publish(unsigned long long* d,
-                                        unsigned long long v) {
-  __threadfence();
-  *reinterpret_cast<volatile unsigned long long*>(d) = v;
-}
-
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// Warp 0: the tile's exclusive prefix, with the aggregate published
-// first and the inclusive prefix after.
-__device__ int look_back(unsigned long long* desc, int tile, int agg) {
-  const int lane = threadIdx.x & 31;
-  if (tile == 0) {
-    if (lane == 0) publish(desc, kPrefix | unsigned(agg));
-    return 0;
-  }
-  if (lane == 0) publish(desc + tile, kAggregate | unsigned(agg));
-  int excl = 0;
-  for (int pred = tile - 1;; pred -= 32) {
-    const int j = pred - lane;   // lane 0 the nearest predecessor
-    unsigned long long d = kPrefix;  // before tile 0: a prefix of 0
-    for (;;) {
-      if (j >= 0)
-        d = *reinterpret_cast<volatile unsigned long long*>(desc + j);
-      if (!__any_sync(kFull, (d >> 32) == 0)) break;
-      __nanosleep(64);
-    }
-    const unsigned prefixes = __ballot_sync(kFull, (d >> 32) == 2);
-    const int v = int(unsigned(d));
-    if (prefixes) {
-      const int first = __ffs(prefixes) - 1;
-      excl += warp_sum(lane <= first ? v : 0);
-      break;
-    }
-    excl += warp_sum(v);
-  }
-  if (lane == 0) publish(desc + tile, kPrefix | unsigned(excl + agg));
-  return excl;
-}
 
 template <int kPayloads>
 __global__ void __launch_bounds__(kThreads)
@@ -154,9 +90,7 @@ compact_kernel(const uint8_t* __restrict__ flags, Payloads<kPayloads> p,
   __shared__ int s_excl;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) s_tile = int(atomicAdd(ws, 1ull));
-  __syncthreads();
-  const int tile = s_tile;
+  const int tile = lookback::take_ticket(ws, &s_tile);
   // element index of the tile's first flag: tiles are cut at 16-byte
   // boundaries of the flags' addresses, the first one `head` bytes early
   const int64_t base = int64_t(tile) * kTile - head;
@@ -165,25 +99,17 @@ compact_kernel(const uint8_t* __restrict__ flags, Payloads<kPayloads> p,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int local = warp * kSeg + h * (kSeg / 2) + lane * 16;
-    const uint4 v = load16(flags, base + local, k);
+    const uint4 v = lookback::load16(flags, base + local, k);
     *reinterpret_cast<uint4*>(s_flags + local) = v;
-    cnt += nonzero_bytes(v.x) + nonzero_bytes(v.y) + nonzero_bytes(v.z) +
-           nonzero_bytes(v.w);
+    cnt += lookback::count16(v);
   }
-  cnt = warp_sum(cnt);   // the warp's count, in every lane
+  cnt = lookback::warp_sum(cnt);   // the warp's count, in every lane
   if (lane == 0) s_warp[warp] = cnt;
   __syncthreads();
   if (warp == 0) {
-    const int v = lane < kWarps ? s_warp[lane] : 0;
-    int incl = v;
-#pragma unroll
-    for (int o = 1; o < kWarps; o <<= 1) {
-      const int y = __shfl_up_sync(kFull, incl, o);
-      if (lane >= o) incl += y;
-    }
-    const int agg = __shfl_sync(kFull, incl, kWarps - 1);
-    if (lane < kWarps) s_warp[lane] = incl - v;  // warp offsets in the tile
-    const int excl = look_back(ws + 1, tile, agg);
+    const int agg = lookback::warp_offsets<kWarps>(
+        lane < kWarps ? s_warp[lane] : 0, s_warp);
+    const int excl = lookback::look_back(ws + 1, tile, agg);
     if (lane == 0) {
       s_excl = excl;
       if (tile == tiles - 1) *n_out = excl + agg;

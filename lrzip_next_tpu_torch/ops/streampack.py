@@ -12,9 +12,11 @@ Both return ``(packed, count)``: a ``cap``-sized output with the kept
 elements first and zeros past them (the padding reaches the rANS planes,
 so it must be deterministic), and the number of set flags as a 0-dim
 int32 tensor.  Elements ranked at or past ``cap`` are dropped; the count
-still counts them.  A CUDA tensor runs ``csrc/streampack.cu`` (count
-pass, ``torch.cumsum`` over the block counts, scatter pass); a CPU tensor
-runs the plain version.
+still counts them.  A CUDA tensor runs ``csrc/streampack.cu``: for K3 one
+launch, after one ``cudaMemsetAsync`` of a small per-call workspace, of
+a one-pass compaction with a decoupled look-back that also writes the
+zero tail and the count; for K6 a count pass, ``torch.cumsum`` over the
+block counts and a scatter pass.  A CPU tensor runs the plain version.
 
 Counterparts of ``lrzip_next_tpu/ops/streampack.py``
 (``pack_stream_pallas``, ``pack_plane_pallas``) and of their XLA twin
@@ -56,27 +58,53 @@ def pack_plane_reference(plane: torch.Tensor, cap: int):
                               torch.int16)
 
 
-def _launch(count_fn: str, scatter_fn: str, flag_src: torch.Tensor,
-            inputs, m: int, cap: int, dtype: torch.dtype,
-            device: torch.device):
-    """Count pass over ``flag_src``, exclusive scan of the block counts,
-    scatter pass over ``inputs``; launches nothing for ``m == 0``."""
-    out = torch.zeros(cap, dtype=dtype, device=device)
+def _pack_plane(plane: torch.Tensor, cap: int):
+    """K6's count pass over ``plane``, exclusive scan of the block counts,
+    scatter pass; launches nothing for an empty plane."""
+    device = plane.device
+    m = plane.numel()
+    out = torch.zeros(cap, dtype=torch.int16, device=device)
     if m == 0:
         return out, torch.zeros((), dtype=torch.int32, device=device)
     lib = _build.library()
     tile = lib.lrzt_pack_tile()
     counts = torch.empty(-(-m // tile), dtype=torch.int32, device=device)
     stream = _build.stream_ptr(device)
-    _build.check(getattr(lib, count_fn)(flag_src.data_ptr(), m,
-                                        counts.data_ptr(), stream),
-                 count_fn)
+    _build.check(lib.lrzt_pack_plane_count(plane.data_ptr(), m,
+                                           counts.data_ptr(), stream),
+                 "lrzt_pack_plane_count")
     incl = torch.cumsum(counts, 0, dtype=torch.int64)
     offsets = incl - counts
-    _build.check(getattr(lib, scatter_fn)(
-        *(x.data_ptr() for x in inputs), m, offsets.data_ptr(),
-        out.data_ptr(), cap, stream), scatter_fn)
+    _build.check(lib.lrzt_pack_plane_scatter(
+        plane.data_ptr(), m, offsets.data_ptr(), out.data_ptr(), cap,
+        stream), "lrzt_pack_plane_scatter")
     return out, incl[-1].to(torch.int32)
+
+
+def _pack_bytes(vals: torch.Tensor, flags: torch.Tensor, cap: int):
+    """K3's one-pass kernel on CUDA tensors: the ``cap`` bytes (zeros past
+    the count, written by the kernel) and the 0-dim int32 count; launches
+    nothing for an empty input."""
+    device = vals.device
+    m = vals.shape[0]
+    if m == 0:
+        return (torch.zeros(cap, dtype=torch.uint8, device=device),
+                torch.zeros((), dtype=torch.int32, device=device))
+    if m >= 1 << 31:
+        raise ValueError(f"pack_stream: {m} elements; the kernel takes "
+                         "fewer than 2**31")
+    lib = _build.library()
+    out = torch.empty(cap, dtype=torch.uint8, device=device)
+    # freed on return, maybe before the kernel ends: the caching allocator
+    # hands the block only to work queued after it on this stream
+    ws = torch.empty(lib.lrzt_pack_bytes_slots(m), dtype=torch.int64,
+                     device=device)
+    n = torch.empty((), dtype=torch.int32, device=device)
+    _build.check(lib.lrzt_pack_bytes(
+        vals.data_ptr(), flags.data_ptr(), m, out.data_ptr(), cap,
+        ws.data_ptr(), ws.shape[0], n.data_ptr(),
+        _build.stream_ptr(device)), "lrzt_pack_bytes")
+    return out, n
 
 
 def _check_device(t: torch.Tensor, what: str) -> None:
@@ -100,9 +128,7 @@ def pack_stream(vals: torch.Tensor, flags: torch.Tensor, cap: int):
         _check_device(t, "pack_stream")
     if vals.device.type == "cpu":
         return pack_stream_reference(vals, flags, cap)
-    res = _launch("lrzt_pack_bytes_count", "lrzt_pack_bytes_scatter", flags,
-                  (vals, flags), vals.shape[0], cap, torch.uint8,
-                  vals.device)
+    res = _pack_bytes(vals, flags, cap)
     if vals.shape[0]:
         stream_launches += 1
     return res
@@ -117,8 +143,7 @@ def pack_plane(plane: torch.Tensor, cap: int):
     _check_device(plane, "pack_plane")
     if plane.device.type == "cpu":
         return pack_plane_reference(plane, cap)
-    res = _launch("lrzt_pack_plane_count", "lrzt_pack_plane_scatter", plane,
-                  (plane,), plane.numel(), cap, torch.int16, plane.device)
+    res = _pack_plane(plane, cap)
     if plane.numel():
         plane_launches += 1
     return res

@@ -885,3 +885,159 @@ def test_compact_seeds_dual_card_equals_cpu(cuda, stride):
     for g, w in zip(got, want):
         for a, b in zip(g, w):
             assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+# --- K1 and K3 as redesigned: spans and tiles, slices, the zero tail ---------
+
+_K1_TILE = 8160     # positions a K1 block writes (anchor_fps.cu kTile)
+_K3_TILE = 8192     # elements a K3 tile (streampack.cu k3::kTile)
+
+
+@pytest.mark.parametrize("n", [_K1_TILE + 30, _K1_TILE + 31, _K1_TILE + 32,
+                               4 * _K1_TILE + 31 + 777])
+@pytest.mark.parametrize("stride", [2, 4, 8, 16, 32])
+def test_k1_around_its_tile(cuda, stride, n):
+    """ma at one block's positions less one, equal and one more (rounded
+    to the stride), and several blocks with a ragged tail; the whole
+    input in one TMA-sized span or not."""
+    data = torch.from_numpy(_repeating(n, 3 * n + stride)).to(cuda)
+    ma = ((n - 31) // stride) * stride
+    before = A.launches
+    fpa, fpb = A.anchor_fps(data, stride, ma)
+    torch.cuda.synchronize()
+    assert A.launches == before + 1
+    rfpa, rfpb = A.anchor_fps_reference(data, stride, ma)
+    assert torch.equal(fpa, rfpa) and torch.equal(fpb, rfpb)
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8, 15])
+@pytest.mark.parametrize("stride", [2, 8, 32])
+def test_k1_takes_a_slice_at_any_byte(cuda, stride, offset):
+    n = 3 * _K1_TILE + 4_321
+    buf = torch.from_numpy(_repeating(n + offset, offset + stride)).to(cuda)
+    data = buf[offset:]
+    assert data.data_ptr() % 16 == offset % 16
+    ma = ((n - 31) // stride) * stride
+    fpa, fpb = A.anchor_fps(data, stride, ma)
+    torch.cuda.synchronize()
+    rfpa, rfpb = A.anchor_fps_reference(data, stride, ma)
+    assert torch.equal(fpa, rfpa) and torch.equal(fpb, rfpb)
+
+
+def test_k1_all_equal_bytes_are_all_anchors(cuda):
+    data = torch.full((2 * _K1_TILE + 100,), 0x61, dtype=torch.uint8,
+                      device=cuda)
+    ma = ((data.shape[0] - 31) // 8) * 8
+    fpa, fpb = A.anchor_fps(data, 8, ma)
+    rfpa, rfpb = A.anchor_fps_reference(data, 8, ma)
+    assert torch.equal(fpa, rfpa) and torch.equal(fpb, rfpb)
+    assert bool((fpa != 0x7FFFFFFF).all())
+
+
+def _k3_inputs(m: int, kind: str, seed: int, cuda, offset_v: int = 0,
+               offset_f: int = 0):
+    rng = np.random.default_rng(seed)
+    vals = torch.from_numpy(rng.integers(0, 256, m + 16, dtype=np.uint8))
+    if kind == "runs":
+        lens = rng.geometric([1 / 40, 1 / 100] * (m // 70 + 2))
+        f = np.repeat(np.arange(len(lens)) % 2 == 0, lens)[:m + 16]
+    else:
+        f = _flags(kind, m + 16, rng)
+    flags = torch.from_numpy(f)
+    return (vals.to(cuda)[offset_v:offset_v + m],
+            flags.to(cuda)[offset_f:offset_f + m])
+
+
+def _k3_equal(vals, flags, cap):
+    before = SP.stream_launches
+    got, n = SP.pack_stream(vals, flags, cap)
+    torch.cuda.synchronize()
+    assert SP.stream_launches == before + 1
+    ref, ref_n = SP.pack_stream_reference(vals, flags, cap)
+    assert n.is_cuda and n.dtype == torch.int32 and n.dim() == 0
+    assert int(n) == int(ref_n) == int(flags.sum())
+    assert got.shape == (cap,) and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("m", [_K3_TILE - 1, _K3_TILE, _K3_TILE + 1,
+                               5 * _K3_TILE + 777])
+@pytest.mark.parametrize("kind", ["none", "all", "half", "runs"])
+def test_k3_around_its_tile_with_every_cap(cuda, kind, m):
+    """cap below, at and above the count, and past m: the full cap output
+    (the zero tail included) equals the plain version's."""
+    vals, flags = _k3_inputs(m, kind, m + len(kind), cuda)
+    n = int(flags.sum())
+    for cap in sorted({max(n // 3, 1), n, n + 1, m + 70_001}):
+        _k3_equal(vals, flags, cap)
+
+
+@pytest.mark.parametrize("offsets", [(1, 1), (0, 1), (1, 0), (5, 13)])
+def test_k3_takes_slices_at_any_byte(cuda, offsets):
+    m = 3 * _K3_TILE + 99
+    vals, flags = _k3_inputs(m, "runs", sum(offsets), cuda, *offsets)
+    assert vals.data_ptr() % 16 == offsets[0] % 16
+    assert flags.data_ptr() % 16 == offsets[1] % 16
+    n = int(flags.sum())
+    for cap in (n // 2, n + 12_345):
+        _k3_equal(vals, flags, cap)
+
+
+def test_k3_zero_tail_is_zero_on_recycled_memory(cuda):
+    """The output is torch.empty: a block the allocator hands back full of
+    0xFF must still come out with a zero tail."""
+    m, cap = 3 * _K3_TILE + 5, 400_000
+    vals, flags = _k3_inputs(m, "half", 9, cuda)
+    junk = torch.full((cap,), 0xFF, dtype=torch.uint8, device=cuda)
+    del junk
+    _k3_equal(vals, flags, cap)
+    _k3_equal(vals, torch.zeros_like(flags), cap)
+
+
+def test_k3_is_one_kernel_and_at_most_one_memset(cuda):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    vals, flags = _k3_inputs(4 * _K3_TILE + 3, "runs", 5, cuda)
+    cap = 4 * _K3_TILE
+    SP.pack_stream(vals, flags, cap)        # built and loaded before
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            SP.pack_stream(vals, flags, cap)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    kernels = [n for n in names if "pack_bytes_kernel" in n]
+    memsets = [n for n in names if "memset" in n.lower()]
+    assert len(kernels) == 3, names
+    assert len(memsets) <= 3 and len(kernels) + len(memsets) == len(names), \
+        names
+
+
+def test_k3_back_to_back_and_on_a_side_stream(cuda):
+    inputs = [_k3_inputs(2 * 132 * _K3_TILE + 99, ("runs", "half")[i % 2],
+                         200 + i, cuda) for i in range(11)]
+    caps = [int(f.sum()) + 1000 for _, f in inputs]
+    torch.cuda.synchronize()
+    outs = [SP.pack_stream(v, f, c) for (v, f), c in
+            zip(inputs[:10], caps[:10])]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = SP.pack_stream(*inputs[10], caps[10])
+    torch.cuda.synchronize()
+    for (v, f), c, (got, n) in zip(inputs, caps, outs + [on_side]):
+        ref, ref_n = SP.pack_stream_reference(v, f, c)
+        assert int(n) == int(ref_n) and torch.equal(got, ref)
+
+
+def test_k3_raises_from_2_to_the_31_elements(cuda):
+    k = 1 << 31
+    vals = torch.empty(k, dtype=torch.uint8, device=cuda)
+    flags = torch.empty(k, dtype=torch.bool, device=cuda)
+    before = SP.stream_launches
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        SP.pack_stream(vals, flags, 16)
+    assert SP.stream_launches == before
+    del vals, flags
+    torch.cuda.empty_cache()
