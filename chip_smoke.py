@@ -23,9 +23,10 @@ Phases, in order; any failure exits nonzero before the last line:
    ``torch.profiler``, and K7 with its cluster size), K7 at 64 lanes and
    at every cluster size it launches (K = 1024 .. 16384 lanes of 1280
    steps); the replay kernels K8a
-   (ragged_concat), K8c (small_merge) and K8b (layered_pass) on the
-   fragment tables that the device replay of the 64 MiB long-range chunk
-   and of the 64 MiB pasted-pieces chunk hands them.  Beside each
+   (ragged_concat) and K8c (small_merge) on the piece tables, and K8b
+   (layered_pass) on the fragment tables, that the device replay of the
+   64 MiB long-range chunk and of the 64 MiB pasted-pieces chunk hands
+   them (K8a and K8c also with their own device time).  Beside each
    kernel's time stand its bound (see ``bound``) and, where one PyTorch
    call computes the same function, that call's time and the ratio.  K2,
    K10 and K3 also run under ``torch.profiler``: at most one kernel and
@@ -53,7 +54,8 @@ Phases, in order; any failure exits nonzero before the last line:
    as for ``decompress``; CUDA tensors equal to the input), timed up to a
    synchronised device tensor.  The launch counters are zeroed just before
    each run and read just after: every kernel of the path must have
-   launched.  A profile of one warm decompress shows where its time goes;
+   launched.  A profile of one warm decompress shows where its time goes,
+   with the replay on the card split into its parts;
 5. card equals CPU: an 8 MiB mixed input (gzip), a 4 MiB skewed input
    whose literals make one rANS block of 4096 lanes (rans), a 4 MiB
    pasted-pieces input (rans, layered replay) and a 4 MiB dense
@@ -704,40 +706,52 @@ def replay_tables(corpus: np.ndarray):
 
 def check_replay_kernels(corpus: np.ndarray, label: str) -> dict:
     """K8a, K8c and, where the plan is layered, K8b against their plain
-    versions on the tables of this chunk's device replay."""
+    versions on the tables of this chunk's device replay: K8a and K8c take
+    the long and short piece tables, K8b the fragments of a pass.  K8a's
+    and K8c's own device time too (``torch.profiler``)."""
     from lrzip_next_tpu_torch.ops import replay_ragged as RR
     calls = replay_tables(corpus)
     res = {}
     none = "no single library call: no PyTorch function takes ragged slices"
 
-    def frag_bytes(frags):
-        return int(frags[2].sum())
+    def table_bytes(table):
+        return int(table[2].sum())
 
-    lit, frags, lo, ncells = calls["ragged_concat"][0]
-    # K8a bytes: the fragments' bytes and their records in, every cell
-    # out; operations: one address and one move per byte
-    nb = frag_bytes(frags)
+    lit, pieces, ncells = calls["ragged_concat"][0]
+    # K8a bytes: the long pieces' bytes and their 24-byte records in, every
+    # cell out; operations: one address and one move per byte
+    nb = table_bytes(pieces)
+
+    def k8a():
+        return RR.ragged_concat(lit, pieces, ncells)
+
     res["k8a"] = timed_pair(
-        "K8a ragged_concat", f"{label}: {frags.shape[1]} fragments, {nb} "
-        f"bytes, {ncells} cells",
-        lambda: RR.ragged_concat(lit, frags, lo, ncells),
-        lambda: RR.ragged_concat_reference(lit, frags, lo, ncells), max_err,
-        bound(nb + 24 * frags.shape[1] + 8 * lo.shape[0] + ncells * RR.CELL,
+        "K8a ragged_concat", f"{label}: {pieces.shape[1]} long pieces, {nb} "
+        f"bytes, {ncells} cells", k8a,
+        lambda: RR.ragged_concat_reference(lit, pieces, ncells), max_err,
+        bound(nb + 24 * pieces.shape[1] + ncells * RR.CELL,
               2 * nb + ncells * RR.CELL))
+    res["k8a"]["device_ms"] = kernel_device_ms(k8a, "ragged_kernel",
+                                               f"K8a {label}")
     if calls["small_merge"]:
-        out0, lit, frags, lo = calls["small_merge"][0]
-        nb = frag_bytes(frags)
+        out0, lit, pieces = calls["small_merge"][0]
+        nb = table_bytes(pieces)
         mine, plain = out0.clone(), out0.clone()
+
         # K8c and K8b copy in place from bytes they do not write, so a
         # second run on the same buffer writes the same bytes again
+        def k8c():
+            return RR.small_merge(mine, lit, pieces)
+
         res["k8c"] = timed_pair(
-            "K8c small_merge", f"{label}: {frags.shape[1]} fragments, {nb} "
-            f"bytes, {lo.shape[0] - 1} touched cells",
-            lambda: RR.small_merge(mine, lit, frags, lo),
-            lambda: RR.small_merge_reference(plain, lit, frags, lo), max_err,
-            bound(2 * nb + 24 * frags.shape[1] + 8 * lo.shape[0], 2 * nb))
+            "K8c small_merge", f"{label}: {pieces.shape[1]} short pieces, "
+            f"{nb} bytes", k8c,
+            lambda: RR.small_merge_reference(plain, lit, pieces), max_err,
+            bound(2 * nb + 24 * pieces.shape[1], 2 * nb))
+        res["k8c"]["device_ms"] = kernel_device_ms(k8c, "small_kernel",
+                                                   f"K8c {label}")
     for i, (buf0, frags, lo) in enumerate(calls["layered_pass"]):
-        nb = frag_bytes(frags)
+        nb = table_bytes(frags)
         mine, plain = buf0.clone(), buf0.clone()
         r = timed_pair(
             "K8b layered_pass", f"{label}, pass {i + 1}: {frags.shape[1]} "
@@ -999,30 +1013,115 @@ def profile_decompress(archive: bytes) -> None:
     payload = reader.read_payload(ref)
     dev = torch.device("cuda")
 
-    def stage(fn):
+    def stage(fn, reps=5):
+        """fn's last result and its median host-clock ms over reps runs,
+        each synchronised before and after."""
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, statistics.median(times)
+
+    tokens, parse_ms = stage(lambda: runtime.parse_token_stream(
+        np.frombuffer(stream0, np.uint8), hdr.chunk_bytes)[:3])
+    plane, k7_ms = stage(lambda: DP.DeviceLitPlane(payload, ref.u_len, dev))
+    parts = replay_parts(tokens, plane.plane)
+    chunk = DP.replay_tokens_device_array(*tokens, plane.plane)
+    host, back_ms = stage(lambda: chunk.cpu().numpy().tobytes())
+    _, check_ms = stage(plane.check)
+    log(f"  the chunk's decode stages alone, host-clock ms, median of 5, "
+        f"each synchronised: token parse {parse_ms:.3f}; literal block "
+        f"({len(payload)} payload bytes -> {plane.n} literals) parse + "
+        f"upload + K7 {k7_ms:.3f}; replay on the card {parts['whole']:.3f}; "
+        f"read-back of {len(host)} bytes {back_ms:.3f}; final-state check "
+        f"{check_ms:.3f}")
+    log("  replay on the card, its parts (replay_parts), host-clock ms, "
+        "median of 5: " + "; ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+
+
+# The functions that the replay on the card calls, each timed on its own by
+# ``replay_parts``; a checkout that lacks one leaves it out.
+REPLAY_PARTS = (
+    ("runtime", "flatten_replay_layered", "layered flatten"),
+    ("runtime", "flatten_replay", "flat flatten"),
+    ("RR", "flat_tables", "piece tables (check, merge, upload, split)"),
+    ("RR", "_pieces", "piece upload"),
+    ("RR", "plan_frags", "plan_frags"),
+    ("RR", "ragged_concat", "K8a"),
+    ("RR", "small_merge", "K8c"),
+    ("RR", "layered_pass", "K8b"),
+)
+
+
+def replay_parts(tokens, lit: torch.Tensor, reps: int = 5) -> dict:
+    """The replay on the card split into its parts, host-clock ms, median
+    of ``reps`` runs.  It runs the function that the decode runs,
+    ``device_path.replay_tokens_device_array``, with each function of
+    ``REPLAY_PARTS`` that it calls wrapped by a timer that synchronises
+    before and after (a call made inside another timed call counts for
+    the outer one).  "rest" is that run less its timed parts (the token
+    columns and the steps between the calls), "whole" the same call
+    without the timers, and "read-back" the chunk's copy to the host."""
+    from lrzip_next_tpu_torch import runtime
+    from lrzip_next_tpu_torch.models import device_path as DP
+    from lrzip_next_tpu_torch.ops import replay_ragged as RR
+    mods = {"runtime": runtime, "RR": RR}
+    timed: dict = {}
+    depth = [0]
+
+    def timer(fn, label):
+        def wrapper(*args, **kwargs):
+            if depth[0]:
+                return fn(*args, **kwargs)
+            depth[0] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                timed[label] = timed.get(label, 0.0) + \
+                    (time.perf_counter() - t0) * 1e3
+                depth[0] -= 1
+        return wrapper
+
+    def synced_ms(fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
-    tokens, parse_ms = stage(lambda: runtime.parse_token_stream(
-        np.frombuffer(stream0, np.uint8), hdr.chunk_bytes)[:3])
-    plane, k7_ms = stage(lambda: DP.DeviceLitPlane(payload, ref.u_len, dev))
-    lay, plan_ms = stage(lambda: runtime.flatten_replay_layered(*tokens))
-    chunk, replay_ms = stage(lambda: DP.replay_tokens_device_array(
-        *tokens, plane.plane))
-    host, back_ms = stage(lambda: chunk.cpu().numpy().tobytes())
-    _, check_ms = stage(plane.check)
-    log(f"  the chunk's decode stages alone, host-clock ms, each "
-        f"synchronised: token parse {parse_ms:.3f}; literal block "
-        f"({len(payload)} payload bytes -> {plane.n} literals) parse + "
-        f"upload + K7 {k7_ms:.3f}; replay on the card {replay_ms:.3f}, of "
-        f"which the host's flatten alone {plan_ms:.3f} ("
-        + ("no layered plan" if lay is None else
-           f"{len(lay[0])} pieces, {lay[3]} layers")
-        + f"); read-back of {len(host)} bytes {back_ms:.3f}; final-state "
-        f"check {check_ms:.3f}")
+    def replay():
+        return DP.replay_tokens_device_array(*tokens, lit)
+
+    present = [(mods[m], name, label) for m, name, label in REPLAY_PARTS
+               if hasattr(mods[m], name)]
+    runs = []
+    replay()                               # warm
+    for _ in range(reps):
+        _, whole = synced_ms(replay)
+        timed.clear()
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in present]
+        for mod, name, label in present:
+            setattr(mod, name, timer(getattr(mod, name), label))
+        try:
+            chunk, spied = synced_ms(replay)
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+        _, back = synced_ms(lambda: chunk.cpu().numpy())
+        run = dict(timed)
+        run["rest"] = spied - sum(timed.values())
+        run["whole"] = whole
+        run["read-back"] = back
+        runs.append(run)
+    keys = [label for _, _, label in present if label in runs[0]]
+    return {k: statistics.median(r.get(k, 0.0) for r in runs)
+            for k in keys + ["rest", "whole", "read-back"]}
 
 
 def to_device_timed(archive: bytes, corpus: np.ndarray, label: str,

@@ -52,8 +52,8 @@ _SIGNATURES = {
     "lrzt_rans_decode": [_vp, _i64, _vp, _vp, _i64, _ci, _i64, _ci, _ci,
                          _vp, _vp, _vp],
     "lrzt_rans_decode_cluster": [_ci, _ci, ctypes.POINTER(_ci)],
-    "lrzt_replay_ragged": [_vp, _i64, _vp, _i64, _vp, _i64, _vp, _vp],
-    "lrzt_replay_small": [_vp, _i64, _vp, _i64, _vp, _i64, _vp, _i64, _vp],
+    "lrzt_replay_ragged": [_vp, _i64, _vp, _i64, _i64, _vp, _vp],
+    "lrzt_replay_small": [_vp, _i64, _vp, _i64, _vp, _i64, _vp],
     "lrzt_replay_layered": [_vp, _i64, _vp, _i64, _vp, _i64, _vp],
 }
 

@@ -9,27 +9,29 @@ output that pass k-1 completed.  All sources of one pass are read-only
 during it and all destinations are disjoint, so the fragments of a pass
 run in any order.
 
-The piece list (a few records a token) is uploaded once; the planning
-that the JAX package does in numpy on the host is plain tensor code on
-the pieces' device here (``plan_frags``): pieces are cut at cell
-boundaries into *fragments*, each inside one destination cell, in
-destination order, with the per-cell fragment ranges ``lo`` (cell j owns
-fragments ``lo[j] .. lo[j+1]``).  A fragment table is a (3, N) int64
-tensor of rows dst, src, len in absolute byte offsets.  Three kernels
-(``csrc/replay_ragged.cu``) take the tables:
+The piece list (a few records a token) is split into long and short
+pieces and uploaded once, as (3, P) int64 tables of rows dst, src, len
+in absolute byte offsets, ascending by ``dst`` (``piece_tables``).
+Three kernels (``csrc/replay_ragged.cu``) take them:
 
-- K8a ``ragged_concat``: pieces longer than ``SHORT_LEN`` bytes, 8 KiB
-  cells, one block a cell: the cell is assembled in shared memory (zero
-  where no fragment lands) and written once, so the output needs no
-  clearing pass.  Counterpart of ``_ragged_call``.
-- K8c ``small_merge``: pieces of at most ``SHORT_LEN`` bytes, 1 KiB
-  cells, touched cells only, merged in place into K8a's output.
-  Counterpart of ``_small_call`` (whose output aliases its input).
+- K8a ``ragged_concat``: the pieces longer than ``SHORT_LEN`` bytes into
+  a zeroed buffer of 8 KiB cells, one block a cell; the block finds its
+  own first piece by a search over the table and builds each 16-byte
+  word of the cell in registers, so every output word is written once
+  and the output needs no clearing pass.  Counterpart of
+  ``_ragged_call``.
+- K8c ``small_merge``: the pieces of at most ``SHORT_LEN`` bytes, in
+  place into K8a's output, 32 pieces a warp, their 16-byte destination
+  words spread over the lanes.  Counterpart of ``_small_call`` (whose
+  output aliases its input).
 - K8b ``layered_pass``: pass k of a layered plan, 8 KiB cells, touched
   cells only, in place: it reads bytes that passes below k completed and
   writes bytes that none of them wrote.  Counterpart of ``_layered_call``
   (which builds a new buffer each pass and copies untouched cells
-  through; in place that copy is not needed).
+  through; in place that copy is not needed).  It takes fragments: the
+  pieces cut at cell boundaries in tensor code on the pieces' device
+  (``plan_frags``), with the per-cell fragment ranges ``lo`` (cell j
+  owns fragments ``lo[j] .. lo[j+1]``).
 
 The TPU kernels' int32-per-byte staging of the plane, the lead and trail
 padding rows, the 16-row DMA windows at 8-aligned rows, the row and lane
@@ -52,8 +54,8 @@ from . import _build
 
 CELL = 8192                 # bytes per output cell of K8a and K8b
 CELL_BITS = 13
-SMALL_CELL_BITS = 10        # K8c: 1 KiB cells
 SHORT_LEN = 512             # pieces up to this length go through K8c
+_HUGE = 1 << 61             # K8a's clamp of dst and len (kHuge)
 
 ragged_launches = 0
 layered_launches = 0
@@ -120,110 +122,128 @@ def touched_ranges(lo: torch.Tensor) -> torch.Tensor:
 # the kernels' wrappers and plain versions
 
 
-def _check_table(what: str, buf: torch.Tensor, frags: torch.Tensor,
-                 lo: torch.Tensor) -> None:
+def _check_tensors(what: str, buf: torch.Tensor, table: torch.Tensor,
+                   *others: torch.Tensor) -> None:
     if buf.dtype != torch.uint8 or buf.dim() != 1:
         raise TypeError(f"{what}: bytes must be 1-D uint8, got {buf.dtype} "
                         f"{tuple(buf.shape)}")
-    if frags.dtype != torch.int64 or frags.dim() != 2 or \
-            frags.shape[0] != 3:
-        raise TypeError(f"{what}: fragment table must be (3, N) int64, got "
-                        f"{frags.dtype} {tuple(frags.shape)}")
-    if lo.dtype != torch.int64 or lo.dim() != 1 or lo.shape[0] < 1:
-        raise TypeError(f"{what}: ranges must be 1-D int64, got {lo.dtype} "
-                        f"{tuple(lo.shape)}")
-    if not (buf.device == frags.device == lo.device):
+    if table.dtype != torch.int64 or table.dim() != 2 or \
+            table.shape[0] != 3:
+        raise TypeError(f"{what}: table must be (3, N) int64, got "
+                        f"{table.dtype} {tuple(table.shape)}")
+    for t in others:
+        if t.dtype != torch.int64 or t.dim() != 1 or t.shape[0] < 1:
+            raise TypeError(f"{what}: ranges must be 1-D int64, got "
+                            f"{t.dtype} {tuple(t.shape)}")
+    if any(t.device != buf.device for t in (table, *others)):
         raise ValueError(f"{what}: tensors on different devices")
     if buf.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {buf.device}")
-    if not (buf.is_contiguous() and frags.is_contiguous()
-            and lo.is_contiguous()):
+    if not all(t.is_contiguous() for t in (buf, table, *others)):
         raise ValueError(f"{what} needs contiguous tensors")
 
 
-def _byte_maps(frags: torch.Tensor):
-    """Per-byte (dst, src) offsets of a fragment table, in table order."""
-    dst, src, length = frags[0], frags[1], frags[2]
+def _byte_maps(table: torch.Tensor):
+    """Per-byte (dst, src) offsets of a (dst, src, len) table, in table
+    order."""
+    dst, src, length = table[0], table[1], table[2]
     rep = torch.repeat_interleave(
-        torch.arange(frags.shape[1], device=frags.device), length)
-    within = torch.arange(rep.shape[0], device=frags.device) - \
+        torch.arange(table.shape[1], device=table.device), length)
+    within = torch.arange(rep.shape[0], device=table.device) - \
         (torch.cumsum(length, 0) - length)[rep]
     return dst[rep] + within, src[rep] + within
 
 
 def _copy_reference(out: torch.Tensor, src_buf: torch.Tensor,
-                    frags: torch.Tensor) -> None:
-    """out[dst : dst+len] = src_buf[src : src+len] for every fragment
-    that lies inside both tensors (the others are skipped whole)."""
-    dst, src, length = frags[0], frags[1], frags[2]
+                    table: torch.Tensor) -> None:
+    """out[dst : dst+len] = src_buf[src : src+len] for every entry that
+    lies inside both tensors (the others are skipped whole)."""
+    dst, src, length = table[0], table[1], table[2]
     ok = (dst >= 0) & (src >= 0) & (length > 0) & \
         (length <= out.shape[0] - dst) & (length <= src_buf.shape[0] - src)
-    d, s = _byte_maps(frags[:, ok])
+    d, s = _byte_maps(table[:, ok])
     out[d] = src_buf[s]
 
 
-def ragged_concat_reference(lit: torch.Tensor, frags: torch.Tensor,
-                            lo: torch.Tensor, ncells: int) -> torch.Tensor:
-    """Plain PyTorch K8a."""
+def check_order(pieces: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless a K8a table is in the order its kernel
+    searches: the span ``[dst, dst + max(len, 0))`` of every entry, valid
+    or not, ends at or before the next entry's ``dst`` (both clamped to
+    +-2^61 as the kernel clamps them).  The replay's tables hold this by
+    construction: ``dst`` is a running sum of positive lengths, and a
+    subsequence of such a table (``split_pieces``) holds it too."""
+    d = pieces[0].clamp(-_HUGE, _HUGE)
+    end = d + pieces[2].clamp(0, _HUGE)
+    if bool((end[:-1] > d[1:]).any()):
+        raise ValueError("ragged_concat: pieces not ascending and disjoint")
+
+
+def ragged_concat_reference(lit: torch.Tensor, pieces: torch.Tensor,
+                            ncells: int) -> torch.Tensor:
+    """Plain PyTorch K8a; raises ``ValueError`` on a table that
+    ``check_order`` refuses."""
+    check_order(pieces)
     out = torch.zeros(ncells * CELL, dtype=torch.uint8, device=lit.device)
-    dst, length = frags[0], frags[2]
-    ok = (length > 0) & (length <= CELL) & \
-        ((dst >> CELL_BITS) == ((dst + length - 1) >> CELL_BITS)) & \
-        (dst >= 0) & (dst + length <= out.shape[0])
-    d, s = _byte_maps(frags[:, ok])
+    dst, length = pieces[0], pieces[2]
+    ok = (length > 0) & (dst >= 0) & (length <= out.shape[0] - dst)
+    d, s = _byte_maps(pieces[:, ok])
     inside = (s >= 0) & (s < lit.shape[0])
     out[d[inside]] = lit[s[inside]]
     return out
 
 
-def ragged_concat(lit: torch.Tensor, frags: torch.Tensor, lo: torch.Tensor,
-                  ncells: int) -> torch.Tensor:
+def ragged_concat(lit: torch.Tensor, pieces: torch.Tensor, ncells: int
+                  ) -> torch.Tensor:
     """K8a: (ncells * CELL,) uint8 with ``lit[src : src+len]`` at every
-    fragment's ``dst`` and 0 elsewhere.  Every fragment lies inside one
-    8 KiB cell, ``lo`` is (ncells + 1,) and cell j owns fragments
-    ``lo[j] .. lo[j+1]``; a source byte outside ``lit`` reads as 0."""
+    piece's ``dst`` and 0 elsewhere.  ``pieces`` is the (3, P) int64
+    table (dst, src, len), ascending by ``dst`` with disjoint
+    destinations as ``check_order`` states it; a piece that does not lie
+    inside the output is skipped, and a source byte outside ``lit`` reads
+    as 0.  On the CPU a table out of order raises ``ValueError``; the
+    kernel does not check it (that would read the table back), and on
+    such a table it stays inside its tensors but which bytes land is not
+    defined."""
     global ragged_launches
-    _check_table("ragged_concat", lit, frags, lo)
-    if ncells < 1 or lo.shape[0] != ncells + 1:
-        raise ValueError(f"ragged_concat: {lo.shape[0]} range bounds for "
-                         f"{ncells} cells")
+    _check_tensors("ragged_concat", lit, pieces)
+    if ncells < 1:
+        raise ValueError(f"ragged_concat: {ncells} cells")
     if lit.device.type == "cpu":
-        return ragged_concat_reference(lit, frags, lo, ncells)
+        return ragged_concat_reference(lit, pieces, ncells)
     out = torch.empty(ncells * CELL, dtype=torch.uint8, device=lit.device)
     lib = _build.library()
     _build.check(lib.lrzt_replay_ragged(
-        lit.data_ptr(), lit.shape[0], frags.data_ptr(), frags.shape[1],
-        lo.data_ptr(), ncells, out.data_ptr(),
-        _build.stream_ptr(lit.device)), "replay_ragged")
+        lit.data_ptr(), lit.shape[0], pieces.data_ptr(), pieces.shape[1],
+        ncells, out.data_ptr(), _build.stream_ptr(lit.device)),
+        "replay_ragged")
     ragged_launches += 1
     return out
 
 
 def small_merge_reference(out: torch.Tensor, lit: torch.Tensor,
-                          frags: torch.Tensor, lo: torch.Tensor
-                          ) -> torch.Tensor:
+                          pieces: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch K8c (in place)."""
-    _copy_reference(out, lit, frags)
+    _copy_reference(out, lit, pieces)
     return out
 
 
-def small_merge(out: torch.Tensor, lit: torch.Tensor, frags: torch.Tensor,
-                lo: torch.Tensor) -> torch.Tensor:
-    """K8c: ``out[dst : dst+len] = lit[src : src+len]`` for every
-    fragment, in place; returns ``out``.  ``lo`` is (nt + 1,), the
-    fragment ranges of the nt touched 1 KiB cells, one warp each."""
+def small_merge(out: torch.Tensor, lit: torch.Tensor, pieces: torch.Tensor
+                ) -> torch.Tensor:
+    """K8c: ``out[dst : dst+len] = lit[src : src+len]`` for every piece of
+    the (3, P) int64 table (any order, disjoint destinations), in place;
+    returns ``out``.  A piece outside either tensor is skipped whole.  An
+    empty table launches nothing."""
     global small_launches
-    _check_table("small_merge", out, frags, lo)
-    _check_table("small_merge", lit, frags, lo)
+    _check_tensors("small_merge", out, pieces)
+    _check_tensors("small_merge", lit, pieces)
     if out.device.type == "cpu":
-        return small_merge_reference(out, lit, frags, lo)
-    if frags.shape[1] == 0 or lo.shape[0] < 2:
+        return small_merge_reference(out, lit, pieces)
+    if pieces.shape[1] == 0:
         return out
     lib = _build.library()
     _build.check(lib.lrzt_replay_small(
-        lit.data_ptr(), lit.shape[0], frags.data_ptr(), frags.shape[1],
-        lo.data_ptr(), lo.shape[0] - 1, out.data_ptr(), out.shape[0],
-        _build.stream_ptr(out.device)), "replay_small")
+        lit.data_ptr(), lit.shape[0], pieces.data_ptr(), pieces.shape[1],
+        out.data_ptr(), out.shape[0], _build.stream_ptr(out.device)),
+        "replay_small")
     small_launches += 1
     return out
 
@@ -244,7 +264,7 @@ def layered_pass(buf: torch.Tensor, frags: torch.Tensor, lo: torch.Tensor
     layered plan).  ``lo`` is (nt + 1,), the fragment ranges of the nt
     touched 8 KiB cells, one block each."""
     global layered_launches
-    _check_table("layered_pass", buf, frags, lo)
+    _check_tensors("layered_pass", buf, frags, lo)
     if buf.device.type == "cpu":
         return layered_pass_reference(buf, frags, lo)
     if frags.shape[1] == 0 or lo.shape[0] < 2:
@@ -262,29 +282,34 @@ def layered_pass(buf: torch.Tensor, frags: torch.Tensor, lo: torch.Tensor
 # the passes
 
 
-def _pieces(device, *arrays: np.ndarray):
-    """The piece arrays as int64 tensors on ``device``, one upload."""
-    both = torch.from_numpy(np.stack(arrays).astype(np.int64)).to(device)
-    return tuple(both[i] for i in range(len(arrays)))
+def _rows(*columns: np.ndarray) -> np.ndarray:
+    """The columns as the rows of one (k, P) int64 array (one copy each,
+    for one upload)."""
+    t = np.empty((len(columns), len(columns[0])), np.int64)
+    for row, col in zip(t, columns):
+        row[...] = col
+    return t
 
 
-def _literal_pass(dst: torch.Tensor, src: torch.Tensor,
-                  length: torch.Tensor, lit: torch.Tensor, out_len: int
-                  ) -> torch.Tensor:
-    """Pieces sourced from the literal plane (tensors on its device,
-    ascending by ``dst``) -> the (ncells * CELL,) uint8 buffer: K8a for
-    the long ones, K8c for the short ones."""
+def split_pieces(table: torch.Tensor, n_long: int):
+    """The long and short pieces of a (3, P) int64 piece table on its
+    device: two contiguous (3, n) tables, each in the order of ``table``.
+    ``n_long``, the count of pieces longer than ``SHORT_LEN``, comes from
+    the host, so nothing is read back."""
+    order = torch.argsort((table[2] <= SHORT_LEN).to(torch.uint8),
+                          stable=True)
+    return (torch.index_select(table, 1, order[:n_long]),
+            torch.index_select(table, 1, order[n_long:]))
+
+
+def _literal_pass(long_t: torch.Tensor, short_t: torch.Tensor,
+                  lit: torch.Tensor, out_len: int) -> torch.Tensor:
+    """Pieces sourced from the literal plane (tables on its device) -> the
+    (ncells * CELL,) uint8 buffer: K8a for the long ones, K8c for the
+    short ones.  No read-back."""
     ncells = -(-max(out_len, 1) // CELL)
-    small = length <= SHORT_LEN
-    long_m = ~small
-    frags, lo = plan_frags(dst[long_m], src[long_m], length[long_m], ncells)
-    out = ragged_concat(lit, frags, lo, ncells)
-    if bool(small.any()):
-        frags, lo = plan_frags(dst[small], src[small], length[small],
-                               ncells * (CELL >> SMALL_CELL_BITS),
-                               SMALL_CELL_BITS)
-        small_merge(out, lit, frags, touched_ranges(lo))
-    return out
+    out = ragged_concat(lit, long_t, ncells)
+    return small_merge(out, lit, short_t)
 
 
 def _check_sources(src: np.ndarray, length: np.ndarray, limit: int) -> None:
@@ -295,11 +320,12 @@ def _check_sources(src: np.ndarray, length: np.ndarray, limit: int) -> None:
         raise ValueError("literal stream length mismatch")
 
 
-def replay_pieces_ragged(plan_len: np.ndarray, plan_lit: np.ndarray,
-                         lit: torch.Tensor, out_len: int) -> torch.Tensor:
-    """Execute a flattened piece plan (``runtime.flatten_replay``: the
-    output is the concatenation of ``lit[s : s+l]``) against the uint8
-    literal plane on its device.  Returns the (out_len,) uint8 chunk."""
+def flat_tables(plan_len: np.ndarray, plan_lit: np.ndarray,
+                lit: torch.Tensor):
+    """The long and short piece tables of a flattened plan
+    (``runtime.flatten_replay``: the output is the concatenation of
+    ``lit[s : s+l]``), checked, merged and uploaded to ``lit``'s
+    device."""
     pl_ = np.asarray(plan_len, np.int64)
     ps_ = np.asarray(plan_lit, np.int64)
     _check_sources(ps_, pl_, int(lit.shape[0]))
@@ -307,8 +333,16 @@ def replay_pieces_ragged(plan_len: np.ndarray, plan_lit: np.ndarray,
     nz = pl_ > 0
     if not nz.all():
         pl_, ps_ = pl_[nz], ps_[nz]
-    dst = np.cumsum(pl_) - pl_
-    return _literal_pass(*_pieces(lit.device, dst, ps_, pl_), lit,
+    table = torch.from_numpy(_rows(np.cumsum(pl_) - pl_, ps_, pl_))
+    return split_pieces(table.to(lit.device),
+                        int(np.count_nonzero(pl_ > SHORT_LEN)))
+
+
+def replay_pieces_ragged(plan_len: np.ndarray, plan_lit: np.ndarray,
+                         lit: torch.Tensor, out_len: int) -> torch.Tensor:
+    """Execute a flattened piece plan against the uint8 literal plane on
+    its device.  Returns the (out_len,) uint8 chunk."""
+    return _literal_pass(*flat_tables(plan_len, plan_lit, lit), lit,
                          out_len)[:out_len]
 
 
@@ -328,15 +362,22 @@ def replay_pieces_layered(plan_len: np.ndarray, plan_src: np.ndarray,
     _check_sources(plan_src[l0], plan_len[l0], int(lit.shape[0]))
     deferred = nz & ~l0
     _check_sources(plan_src[deferred], plan_len[deferred], out_len)
-    t_dst, t_src, t_len, t_layer = _pieces(
-        lit.device, dst[nz], plan_src[nz], plan_len[nz], plan_layer[nz])
-    sel = t_layer == 0
-    out = _literal_pass(t_dst[sel], t_src[sel], t_len[sel], lit, out_len)
+    keep = nz & (plan_layer >= 0) & (plan_layer <= n_layers)
+    layer = plan_layer[keep]
+    counts = np.bincount(layer, minlength=n_layers + 1)
+    # one upload; on the device the pieces in layer order, layer 0 first
+    up = torch.from_numpy(_rows(dst[keep], plan_src[keep], plan_len[keep],
+                                layer)).to(lit.device)
+    order = torch.argsort(up[3], stable=True)
+    table = torch.index_select(up[:3], 1, order)
+    n_long = int(np.count_nonzero(plan_len[l0] > SHORT_LEN))
+    out = _literal_pass(*split_pieces(table[:, :counts[0]], n_long), lit,
+                        out_len)
     ncells = out.shape[0] // CELL
-    for layer in range(1, n_layers + 1):
-        if not ((plan_layer == layer) & nz).any():
-            continue
-        sel = t_layer == layer
-        frags, lo = plan_frags(t_dst[sel], t_src[sel], t_len[sel], ncells)
-        layered_pass(out, frags, touched_ranges(lo))
+    ends = np.cumsum(counts)
+    for k in range(1, n_layers + 1):
+        if counts[k]:
+            t = table[:, ends[k - 1]:ends[k]]
+            frags, lo = plan_frags(t[0], t[1], t[2], ncells)
+            layered_pass(out, frags, touched_ranges(lo))
     return out[:out_len]

@@ -455,13 +455,21 @@ def test_k8a_k8c_kernels_equal_plain(cuda, mode, out_len):
     assert torch.equal(got.cpu(), ref)
 
 
-def _tables(rng, out_len, lit_len, mode, cell_bits, cuda):
+def _np_split(dst, srcs, lens):
+    """The long and short piece tables, (3, n) int64 in dst order, as
+    ``replay_ragged.split_pieces`` makes them on the device."""
+    t = np.stack([dst, srcs, lens]).astype(np.int64)
+    short = t[2] <= RR.SHORT_LEN
+    return (np.ascontiguousarray(t[:, ~short]),
+            np.ascontiguousarray(t[:, short]))
+
+
+def _piece_tables(rng, out_len, lit_len, mode, cuda):
+    """The long and short piece tables of a random plan, on the card."""
     lens, srcs = _random_plan(rng, out_len, lit_len, mode)
-    dst = np.cumsum(lens) - lens
-    ncells = -(-out_len >> cell_bits)
-    frags, lo = RR.plan_frags(*(torch.from_numpy(a).to(cuda) for a in
-                                (dst, srcs, lens)), ncells, cell_bits)
-    return frags, lo, RR.touched_ranges(lo), ncells
+    long_t, short_t = _np_split(np.cumsum(lens) - lens, srcs, lens)
+    return (torch.from_numpy(long_t).to(cuda),
+            torch.from_numpy(short_t).to(cuda), -(-out_len // RR.CELL))
 
 
 @pytest.mark.parametrize("mode", ["mixed", "big"])
@@ -469,40 +477,300 @@ def test_k8a_wrapper_equals_its_plain_version(cuda, mode):
     rng = np.random.default_rng(len(mode))
     lit = torch.from_numpy(rng.integers(0, 256, 90_000, dtype=np.uint8)
                            ).to(cuda)
-    frags, lo, _, ncells = _tables(rng, 70_000, 90_000, mode, RR.CELL_BITS,
-                                   cuda)
-    out = RR.ragged_concat(lit, frags, lo, ncells)
+    long_t, _, ncells = _piece_tables(rng, 70_000, 90_000, mode, cuda)
+    out = RR.ragged_concat(lit, long_t, ncells)
     torch.cuda.synchronize()
-    assert torch.equal(out, RR.ragged_concat_reference(lit, frags, lo,
-                                                       ncells))
+    assert torch.equal(out, RR.ragged_concat_reference(lit, long_t, ncells))
     assert out.shape[0] == ncells * RR.CELL and not out[70_000:].any()
+
+
+def _named_plan(name, rng):
+    """(lens, srcs, lit) of the CPU tests' named plans
+    (``tests/test_torch_k8_redesign.py``)."""
+    mib = 1 << 20
+    lit_len = 400_000
+
+    def mixed(total, lo, hi):
+        out, left = [], total
+        while left > 0:
+            out.append(min(int(rng.integers(lo, hi)), left))
+            left -= out[-1]
+        return out
+
+    lens = {
+        "several_mib_piece": [5000, 3 * mib + 123, 700, 100, 20_000],
+        "ends_on_8k": [8192, 16384, 600, 7592, 300, 212, 7680, 24576, 1,
+                       8191, 513, 15871],
+        "ends_on_1k": [1024, 512, 512, 1000, 24, 2048, 100, 924, 3000, 72,
+                       9216, 511, 513],
+        "only_long": None, "only_short": None,
+        "short_pieces_share_words": None,
+    }.get(name)
+    if name == "several_mib_piece":
+        lit_len = 4 * mib
+    if name.startswith("out_len_"):
+        lens = mixed(int(name[8:]), 1, 1500)
+    elif name == "only_long":
+        lens = mixed(200_000, RR.SHORT_LEN + 1, 20_000)
+    elif name == "only_short":
+        lens = mixed(60_000, 1, RR.SHORT_LEN + 1)
+    elif name == "short_pieces_share_words":
+        lens = mixed(20_000, 1, 16)
+    lens = np.asarray(lens, np.int64)
+    srcs = np.asarray([rng.integers(0, lit_len - n + 1) for n in lens],
+                      np.int64)
+    return lens, srcs, rng.integers(0, 256, lit_len, dtype=np.uint8)
+
+
+@pytest.mark.parametrize("name", [
+    "several_mib_piece", "ends_on_8k", "ends_on_1k", "out_len_1",
+    "out_len_8191", "out_len_8192", "out_len_8193", "only_long",
+    "only_short", "short_pieces_share_words"])
+@pytest.mark.parametrize("lit_offset", [0, 5])
+def test_k8a_k8c_named_plans_card_equals_cpu(cuda, name, lit_offset):
+    """The CPU tests' plans on the card, with the literal plane also a view
+    5 bytes past its allocation: bit-equal to the plain versions."""
+    rng = np.random.default_rng(len(name))
+    lens, srcs, lit = _named_plan(name, rng)
+    lit_dev = torch.from_numpy(np.concatenate(
+        [np.zeros(lit_offset, np.uint8), lit])).to(cuda)[lit_offset:]
+    out_len = int(lens.sum())
+    got = RR.replay_pieces_ragged(lens, srcs, lit_dev, out_len)
+    torch.cuda.synchronize()
+    ref = RR.replay_pieces_ragged(lens, srcs, torch.from_numpy(lit), out_len)
+    assert torch.equal(got.cpu(), ref)
+    want = np.concatenate([lit[s:s + n] for s, n in zip(srcs, lens)])
+    assert np.array_equal(ref.numpy(), want)
+
+
+def _misaligned(k, short, rng):
+    lens = []
+    left = 30_000 if short else 60_000
+    lo, hi = (1, RR.SHORT_LEN + 1) if short else (RR.SHORT_LEN + 1, 9000)
+    while left > 0:
+        lens.append(min(int(rng.integers(lo, hi)), left))
+        left -= lens[-1]
+    lens = np.asarray(lens, np.int64)
+    dst = np.cumsum(lens) - lens
+    srcs = np.asarray([(int(rng.integers(0, 100_000 - n - 32)) & ~15)
+                       + ((int(d) + k) & 15) for n, d in zip(lens, dst)],
+                      np.int64)
+    return dst, srcs, lens
+
+
+@pytest.mark.parametrize("k", range(16))
+def test_k8a_k8c_every_misalignment(cuda, k):
+    """Source against destination k mod 16, every k, for long pieces (K8a)
+    and short ones (K8c into a buffer of other bytes, ``out`` a view k
+    bytes past its allocation)."""
+    rng = np.random.default_rng(40 + k)
+    lit = torch.from_numpy(rng.integers(0, 256, 100_000, dtype=np.uint8))
+    dst, srcs, lens = _misaligned(k, False, rng)
+    long_t = torch.from_numpy(_np_split(dst, srcs, lens)[0])
+    ncells = -(-int(lens.sum()) // RR.CELL)
+    out = RR.ragged_concat(lit.to(cuda), long_t.to(cuda), ncells)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), RR.ragged_concat_reference(lit, long_t,
+                                                             ncells))
+    dst, srcs, lens = _misaligned(k, True, rng)
+    short_t = torch.from_numpy(_np_split(dst, srcs, lens)[1])
+    base = torch.from_numpy(rng.integers(0, 256, 40_000 + k,
+                                         dtype=np.uint8))
+    mine = base.to(cuda)[k:]
+    before = RR.small_launches
+    RR.small_merge(mine, lit.to(cuda), short_t.to(cuda))
+    torch.cuda.synchronize()
+    assert RR.small_launches == before + 1
+    plain = RR.small_merge_reference(base[k:].clone(), lit, short_t)
+    assert torch.equal(mine.cpu(), plain)
+
+
+@pytest.mark.parametrize("gap", [0, 100])
+def test_k8a_dense_long_pieces_after_tiny_ones(cuda, gap):
+    """Tens of thousands of 1-byte pieces in K8a's first block (its cells
+    one by one), then the densest long pieces, whose blocks load their
+    window again from their first piece (``tests/test_torch_k8_redesign``
+    emulates the same table)."""
+    rng = np.random.default_rng(gap + 1)
+    tiny, n = 49_979, 128
+    dst = np.concatenate([np.arange(tiny), 8 * 8192 +
+                          np.arange(n) * (RR.SHORT_LEN + 1 + gap)])
+    lens = np.concatenate([np.ones(tiny, np.int64),
+                           np.full(n, RR.SHORT_LEN + 1, np.int64)])
+    lit = torch.from_numpy(rng.integers(0, 256, 50_000, dtype=np.uint8))
+    srcs = rng.integers(0, 50_000 - 600, len(dst))
+    table = torch.from_numpy(np.stack([dst, srcs, lens]).astype(np.int64))
+    ncells = -(-int(dst[-1] + lens[-1]) // RR.CELL)
+    out = RR.ragged_concat(lit.to(cuda), table.to(cuda), ncells)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), RR.ragged_concat_reference(lit, table,
+                                                             ncells))
+
+
+def test_k8a_zeroes_recycled_memory(cuda):
+    """K8a handed memory that held 0xFF: every byte that no piece covers
+    comes back 0 (the caching allocator hands the freed block back)."""
+    rng = np.random.default_rng(77)
+    lit = torch.from_numpy(rng.integers(0, 256, 300_000, dtype=np.uint8))
+    lens = np.asarray([600, 9000, 513, 20_000, 700] * 20, np.int64)
+    gaps = rng.integers(1, 600, len(lens))
+    dst = np.cumsum(lens + gaps) - lens
+    srcs = rng.integers(0, 300_000 - 20_000, len(lens))
+    table = torch.from_numpy(np.stack([dst, srcs, lens]).astype(np.int64))
+    ncells = -(-int(dst[-1] + lens[-1] + 5000) // RR.CELL)
+    lit_d, table_d = lit.to(cuda), table.to(cuda)
+    junk = torch.full((ncells * RR.CELL,), 0xFF, dtype=torch.uint8,
+                      device=cuda)
+    ptr = junk.data_ptr()
+    del junk
+    out = RR.ragged_concat(lit_d, table_d, ncells)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == ptr            # the recycled block
+    assert torch.equal(out.cpu(), RR.ragged_concat_reference(lit, table,
+                                                             ncells))
+    covered = torch.zeros(ncells * RR.CELL, dtype=torch.bool)
+    for d, n in zip(dst, lens):
+        covered[d:d + n] = True
+    assert not out.cpu()[~covered].any()
+
+
+def _ordered_corrupt_table(seed):
+    """A table in ``check_order``'s order with corrupt entries among the
+    good ones, and its cell count (``tests/test_torch_k8_redesign.py``
+    emulates the same tables)."""
+    rng = np.random.default_rng(100 + seed)
+    hi = (40, 600, 3000, 9000, 20_000, 700)[seed]
+    n = 400
+    lens = rng.integers(1, hi, n)
+    gaps = np.where(rng.random(n) < 0.5, 0, rng.integers(0, 300, n))
+    dst = np.cumsum(lens + gaps) - lens
+    srcs = rng.integers(0, 30_000 - hi, n)
+    bad = rng.random(n) < 0.2
+    what = rng.integers(0, 4, n)
+    lens = np.where(bad & (what == 0), 0, lens)
+    lens = np.where(bad & (what == 1), -rng.integers(1, 50, n), lens)
+    srcs = np.where(bad & (what == 2), -rng.integers(1, 50, n), srcs)
+    srcs = np.where(bad & (what == 3), 30_000 - rng.integers(0, 9, n), srcs)
+    dst[0] -= 37
+    lens[-1] = 1 << 40
+    table = np.stack([dst, srcs, lens]).astype(np.int64)
+    return table, max(1, int(dst[-1]) // RR.CELL)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_k8a_ordered_tables_with_corrupt_entries(cuda, seed):
+    """Every table that ``check_order`` accepts is K8a's input: with
+    corrupt entries among the good ones the kernel is bit-equal to its
+    plain version."""
+    rng = np.random.default_rng(seed)
+    lit = torch.from_numpy(rng.integers(0, 256, 30_000, dtype=np.uint8))
+    table, ncells = _ordered_corrupt_table(seed)
+    t = torch.from_numpy(table)
+    RR.check_order(t)
+    out = RR.ragged_concat(lit.to(cuda)[seed:], t.to(cuda), ncells)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), RR.ragged_concat_reference(
+        lit[seed:], t, ncells))
+
+
+def test_k8a_k8c_past_2_gib(cuda):
+    """An output of more than 2^31 bytes: pieces on both sides of 2^31 and
+    at the end, through K8a and then K8c in place, equal to the plain
+    versions on the card; every other byte is 0."""
+    rng = np.random.default_rng(31)
+    out_len = (1 << 31) + 3 * RR.CELL + 5
+    lit = torch.from_numpy(rng.integers(0, 256, 100_000, dtype=np.uint8)
+                           ).to(cuda)
+    at = [(1 << 31) - 12_000, (1 << 31) - 2000, (1 << 31) - 3,
+          out_len - 2000]
+    lens = [8990, 1400, 515, 2000]
+    long_t = torch.tensor([at, rng.integers(0, 90_000, 4).tolist(), lens],
+                          dtype=torch.int64, device=cuda)
+    sat = [(1 << 31) - 3010, (1 << 31) - 8, (1 << 31) + 512,
+           out_len - 2013]
+    slen = [3, 5, 17, 13]
+    short_t = torch.tensor([sat, rng.integers(0, 90_000, 4).tolist(), slen],
+                           dtype=torch.int64, device=cuda)
+    ncells = -(-out_len // RR.CELL)
+    out = RR.ragged_concat(lit, long_t, ncells)
+    RR.small_merge(out, lit, short_t)
+    torch.cuda.synchronize()
+    ref = RR.ragged_concat_reference(lit, long_t, ncells)
+    RR.small_merge_reference(ref, lit, short_t)
+    assert torch.equal(out, ref)
+    del ref
+    host = lit.cpu().numpy()
+    for d, s, n in zip(at + sat, long_t[1].tolist() + short_t[1].tolist(),
+                       lens + slen):
+        assert np.array_equal(out[d:d + n].cpu().numpy(), host[s:s + n])
+    assert int(out.count_nonzero()) <= sum(lens) + sum(slen)
+
+
+def test_k8c_keeps_neighbour_bytes(cuda):
+    """Short pieces beside pre-filled bytes, some pieces sharing a 16-byte
+    word with each other, some separated by gaps of 1..20 bytes: every
+    byte outside the pieces survives unchanged."""
+    rng = np.random.default_rng(78)
+    lit = torch.from_numpy(rng.integers(0, 256, 50_000, dtype=np.uint8))
+    lens = rng.integers(1, 40, 3000)
+    gaps = np.where(rng.random(3000) < 0.5, 0, rng.integers(1, 21, 3000))
+    dst = np.cumsum(lens + gaps) - lens
+    srcs = rng.integers(0, 50_000 - 40, 3000)
+    order = rng.permutation(3000)           # K8c takes any order
+    table = torch.from_numpy(np.stack([dst, srcs, lens])[:, order].astype(
+        np.int64).copy())
+    fill = torch.from_numpy(rng.integers(0, 256, int(dst[-1] + 64),
+                                         dtype=np.uint8))
+    mine = fill.to(cuda)
+    RR.small_merge(mine, lit.to(cuda), table.to(cuda))
+    torch.cuda.synchronize()
+    plain = RR.small_merge_reference(fill.clone(), lit, table)
+    assert torch.equal(mine.cpu(), plain)
+    covered = torch.zeros(fill.shape[0], dtype=torch.bool)
+    for d, n in zip(dst, lens):
+        covered[d:d + n] = True
+    assert torch.equal(mine.cpu()[~covered], fill[~covered])
 
 
 def test_k8_kernels_never_leave_their_tensors(cuda):
     """Tables that no planner wrote: sources and destinations outside the
-    tensors, lengths past a cell, ranges past the table.  K8a reads 0
-    outside the plane, K8b and K8c skip the fragment, as the plain
-    versions do, and the bytes around the tensors stay untouched."""
+    tensors, lengths past the output, ranges past the table.  K8a reads 0
+    outside the plane, K8b and K8c skip the piece or fragment, as the
+    plain versions do, and the bytes around the tensors stay untouched."""
     lit_all = torch.arange(0, 4096, dtype=torch.int32).to(torch.uint8).to(cuda)
     lit = lit_all[1024:3072]            # guarded on both sides
-    rows = [[0, 100, 200, 9000, 8000, -5, 300],
-            [2040, -3, 5, 0, 10, 0, 1 << 40],
-            [20, 10, 9000, 50, 300, 5, 8]]
-    frags = torch.tensor(rows, dtype=torch.int64, device=cuda)
-    lo = torch.tensor([0, 3, 99], dtype=torch.int64, device=cuda)
-    out = RR.ragged_concat(lit, frags, lo, 2)
+    # ascending by end and disjoint, as the replay's tables are
+    rows = [[-5, 0, 100, 200, 9300, 16000, 16500],
+            [0, 2040, -3, 5, 10, 0, 1 << 40],
+            [5, 20, 10, 9000, 300, 500, 8]]
+    pieces = torch.tensor(rows, dtype=torch.int64, device=cuda)
+    out = RR.ragged_concat(lit, pieces, 2)
     torch.cuda.synchronize()
-    assert torch.equal(out, RR.ragged_concat_reference(lit, frags, lo, 2))
-    assert out[:8].tolist() == lit[2040:2048].tolist()
-    assert out[8:20].tolist() == [0] * 12
+    assert torch.equal(out, RR.ragged_concat_reference(lit, pieces, 2))
+    assert out[:20].tolist() == lit[2040:2048].tolist() + [0] * 12
+    assert out[100:110].tolist() == [0, 0, 0] + lit[:7].tolist()
+    assert out[200:9200].tolist() == lit[5:].tolist() + \
+        [0] * (9000 - 2043)
+    assert not out[16000:].any()
     buf_all = torch.zeros(3 * 8192, dtype=torch.uint8, device=cuda)
     buf = buf_all[8192:16384]
     plain = torch.zeros(8192, dtype=torch.uint8, device=cuda)
-    RR.small_merge(buf, lit, frags, lo)
+    RR.small_merge(buf, lit, pieces)
     torch.cuda.synchronize()
-    RR.small_merge_reference(plain, lit, frags, lo)
+    RR.small_merge_reference(plain, lit, pieces)
     assert torch.equal(buf, plain)
     assert not buf_all[:8192].any() and not buf_all[16384:].any()
+    # not ascending: K8a stays inside its tensors all the same, and a byte
+    # that no valid piece covers stays 0
+    shuffled = pieces[:, [3, 0, 6, 1, 5, 2, 4]].contiguous()
+    out = RR.ragged_concat(lit, shuffled, 2)
+    torch.cuda.synchronize()
+    covered = torch.zeros(2 * 8192, dtype=torch.bool, device=cuda)
+    for d, n in ((0, 20), (100, 10), (200, 9000), (9300, 300)):
+        covered[d:d + n] = True
+    assert out.shape[0] == 2 * 8192 and not out[~covered].any()
+    with pytest.raises(ValueError, match="ascending and disjoint"):
+        RR.ragged_concat_reference(lit, shuffled, 2)   # not its input
     seq = torch.arange(0, 3 * 8192, dtype=torch.int32).to(torch.uint8).to(cuda)
     mine, plain = seq.clone(), seq.clone()
     lay = torch.tensor([[9000, 8192 * 3 - 4, 100], [10, 0, 8192 * 3 - 50],
@@ -574,13 +842,20 @@ def test_k8_wrappers_raise_on_cuda_tensors_they_do_not_take(cuda):
     frags = torch.tensor([[0], [0], [4]], dtype=torch.int64, device=cuda)
     lo = torch.tensor([0, 1], dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError):
-        RR.ragged_concat(lit, frags.cpu(), lo, 1)
+        RR.ragged_concat(lit, frags.cpu(), 1)
     with pytest.raises(ValueError):
-        RR.ragged_concat(lit, frags, lo, 2)
+        RR.ragged_concat(lit, frags, 0)
+    with pytest.raises(TypeError):
+        RR.ragged_concat(lit, frags.to(torch.int32), 1)
     with pytest.raises(TypeError):
         RR.layered_pass(lit, frags.to(torch.int32), lo)
     with pytest.raises(ValueError):
-        RR.small_merge(lit, lit[::2], frags, lo)
+        RR.small_merge(lit, lit[::2], frags)
+    with pytest.raises(ValueError):
+        RR.small_merge(lit, lit, frags.cpu())
+    before = RR.small_launches
+    RR.small_merge(lit, lit, frags[:, :0])      # no piece: no launch
+    assert RR.small_launches == before
 
 
 def test_decompress_layered_card_equals_cpu(cuda):

@@ -106,7 +106,7 @@ def test_merge_contiguous_equals_jax():
     assert RR.merge_contiguous(lens, lits)[0].tolist() == [12, 14]
 
 
-@pytest.mark.parametrize("cell_bits", [RR.CELL_BITS, RR.SMALL_CELL_BITS])
+@pytest.mark.parametrize("cell_bits", [RR.CELL_BITS, 10])   # 10: 1 KiB cells
 @pytest.mark.parametrize("mode", ["mixed", "tiny", "big"])
 def test_plan_frags_properties(mode, cell_bits):
     """Fragments lie inside one cell each, ascend by destination, cover
@@ -160,18 +160,18 @@ def _table(rows):
 
 def test_plain_versions_never_leave_their_tensors():
     """A table with sources or destinations outside the tensors: K8a reads
-    0 there, K8b and K8c skip the fragment."""
+    0 there, K8b and K8c skip the piece or fragment."""
     lit = torch.arange(1, 101, dtype=torch.uint8)
-    frags = _table([[0, 10, 30], [95, -3, 5], [10, 6, 4]])
+    pieces = _table([[0, 10, 30], [95, -3, 5], [10, 6, 4]])
     lo = torch.tensor([0, 3], dtype=torch.int64)
-    out = RR.ragged_concat(lit, frags, lo, 1)
+    out = RR.ragged_concat(lit, pieces, 1)
     assert out.shape[0] == RR.CELL
     assert out[:10].tolist() == [96, 97, 98, 99, 100, 0, 0, 0, 0, 0]
     assert out[10:16].tolist() == [0, 0, 0, 1, 2, 3]
     assert out[30:34].tolist() == [6, 7, 8, 9] and int(out[34:].sum()) == 0
     buf = torch.zeros(64, dtype=torch.uint8)
     bad = _table([[60, 0, 8], [0, 98, 90], [8, 4, 4]])
-    RR.small_merge(buf, lit, bad, lo)
+    RR.small_merge(buf, lit, bad)
     assert buf[8:12].tolist() == [91, 92, 93, 94]
     assert int(buf.sum()) == 91 + 92 + 93 + 94
     buf2 = torch.arange(64, dtype=torch.uint8)
@@ -195,12 +195,14 @@ def test_wrappers_reject_wrong_tensors(what):
     else:
         frags = frags.to("meta")
     err = ValueError if what == "device" else TypeError
-    with pytest.raises(err):
-        RR.ragged_concat(lit, frags, lo, 1)
+    # K8a and K8c take no ranges: their counterpart is K8a's cell count
+    with pytest.raises(ValueError if what == "ranges" else err):
+        RR.ragged_concat(lit, frags, 0 if what == "ranges" else 1)
     with pytest.raises(err):
         RR.layered_pass(lit, frags, lo)
-    with pytest.raises(err):
-        RR.small_merge(torch.zeros(16, dtype=torch.uint8), lit, frags, lo)
+    if what != "ranges":
+        with pytest.raises(err):
+            RR.small_merge(torch.zeros(16, dtype=torch.uint8), lit, frags)
 
 
 # ---------------------------------------------------------------------------
