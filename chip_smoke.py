@@ -19,7 +19,7 @@ Phases, in order; any failure exits nonzero before the last line:
    (joint_histogram), K5 (encode_scan), K6 (pack_plane) and K7
    (decode_scan) at the shapes of the 64 MiB chunk's literal stream, made
    from its real matcher tokens (level 7, ctx_bits 6; K4, K5 and K7 also
-   at ctx_bits 8; K5 and K7 also with their own device time under
+   at ctx_bits 8; K4, K5 and K7 also with their own device time under
    ``torch.profiler``, and K7 with its cluster size), K7 at 64 lanes and
    at every cluster size it launches (K = 1024 .. 16384 lanes of 1280
    steps); the replay kernels K8a
@@ -29,8 +29,8 @@ Phases, in order; any failure exits nonzero before the last line:
    them (K8a and K8c also with their own device time).  Beside each
    kernel's time stand its bound (see ``bound``) and, where one PyTorch
    call computes the same function, that call's time and the ratio.  K2,
-   K10 and K3 also run under ``torch.profiler``: at most one kernel and
-   one memset a call, and the kernel's own device time (K2 and K10 also
+   K10, K3 and K6 also run under ``torch.profiler``: at most one kernel
+   and one memset a call, and the kernel's own device time (K2 and K10 also
    on an all-clear mask and on one tile, ``one_pass_floors``); K1's device
    time too.  Every row whose device time the profiler measured carries
    it as ``dev_ms``;
@@ -349,7 +349,8 @@ def profiled_cuda_events(fn, label: str, reps: int = 5) -> list:
 def one_pass_device(fn, label: str, reps: int = 5,
                     kernel: str = "compact_kernel") -> float:
     """``fn`` calls a one-pass compaction's wrapper once (K2 or K10:
-    ``compact_kernel``; K3: ``pack_bytes_kernel``).  Under
+    ``compact_kernel``; K3: ``pack_bytes_kernel``; K6:
+    ``pack_plane_kernel``).  Under
     ``torch.profiler``, the calls must run at most one ``kernel`` and at
     most one memset each on the device and nothing else (the profiler may
     miss a call of a few microseconds, so fewer count too); returns the
@@ -826,6 +827,9 @@ def check_literal_kernels(corpus64: np.ndarray) -> dict:
                                                  srate, k), max_err,
             bound(rows * k + 4 * cells, 4 * rows * k),
             lambda: torch.bincount(idx, minlength=cells), "torch.bincount")
+        hist["device_ms"] = kernel_device_ms(
+            lambda: RK.joint_histogram(lit, n_lit, ctx_bits, srate, k),
+            "hist_kernel", f"K4 ctx_bits {ctx_bits} {label}")
         freqs = rans.quantize_freqs(hist["out"])
         # K5 bytes: the block and the packed table in, the (T, K) int32
         # plane and the states out; operations a symbol: context, table
@@ -847,19 +851,32 @@ def check_literal_kernels(corpus64: np.ndarray) -> dict:
                        n_lit, ctx_bits, t_len, lit, label)
         if ctx_bits == 6:   # level 7, the main path's
             res["k4"], res["k5"], res["k7"] = hist, enc, dec
+        else:
+            res["k4"]["ms_ctx_bits_8"] = hist["ms"]
+            res["k4"]["device_ms_ctx_bits_8"] = hist["device_ms"]
     plane = res["k5"]["out"][1]
     n_words = int(SP.pack_plane(plane, cap)[1])
-    # K6 bytes: the int32 plane in, the flagged 16-bit words and the count
-    # out; operations: flag test, rank and slot per cell, one move per word
+    # K6 bytes: the int32 plane in, the cap-sized u16 stream (the flagged
+    # words, then the zero tail, which reaches the rANS planes) and the
+    # count out; operations: flag test, rank and slot per cell, one move
+    # per word
     res["k6"] = timed_pair(
         "K6 pack_plane", label,
         lambda: SP.pack_plane(plane, cap),
         lambda: SP.pack_plane_reference(plane, cap), same_pack,
-        bound(4 * cap + 2 * n_words + 4, 3 * cap + n_words),
+        bound(4 * cap + 2 * cap + 4, 3 * cap + n_words),
         lambda: torch.masked_select(plane, plane >= 1 << 16),
         "torch.masked_select")
     require(int(res["k6"]["out"][1]) == n_words, "K6 count differs")
-    log(f"  K6 words: {n_words} of {cap} slots")
+    res["k6"]["device_ms"] = one_pass_device(
+        lambda: SP.pack_plane(plane, cap), "K6 64 MiB chunk",
+        kernel="pack_plane_kernel")
+    words_only = bound(4 * cap + 2 * n_words + 4, 3 * cap + n_words)
+    log(f"  K6 words: {n_words} of {cap} slots; bound / device "
+        f"{res['k6']['bound_ms'] / res['k6']['device_ms']:.4f}; the bound "
+        f"counted without the zero tail (the figure of the rows before) "
+        f"{words_only['bound_ms']:.4f} ms ({words_only['bound_bytes']} "
+        f"bytes)")
     for r in res.values():
         r.pop("out")
     return res

@@ -41,11 +41,10 @@ _SIGNATURES = {
     "lrzt_compact_masked_scatter": [_vp, _vp, _vp, _vp, _i64, _vp, _vp, _vp,
                                     _vp, _vp],
     "lrzt_compact_masked_tile": [],
-    "lrzt_pack_tile": [],
     "lrzt_pack_bytes": [_vp, _vp, _i64, _vp, _i64, _vp, _i64, _vp, _vp],
     "lrzt_pack_bytes_slots": [_i64],
-    "lrzt_pack_plane_count": [_vp, _i64, _vp, _vp],
-    "lrzt_pack_plane_scatter": [_vp, _i64, _vp, _vp, _i64, _vp],
+    "lrzt_pack_plane": [_vp, _i64, _vp, _i64, _vp, _i64, _vp, _vp],
+    "lrzt_pack_plane_slots": [_i64],
     "lrzt_rans_hist": [_vp, _i64, _ci, _ci, _i64, _ci, _vp, _vp],
     "lrzt_rans_encode": [_vp, _i64, _ci, _i64, _ci, _vp, _vp, _vp, _vp,
                          _vp, _vp],

@@ -51,18 +51,30 @@
 // that keeps taking tickets and loads the next tile's flags ahead, and a
 // look-back that reads 256 predecessors a round did not lower it.
 //
-// K6 (count_kernel, scatter_kernel over FusedPlane): still two passes
-// (count, torch.cumsum over the block counts, scatter).  Bound: device
-// memory; it reads the 4-byte plane element twice and writes 2 bytes per
-// flagged word.
-//   1. count: each block counts the flags of its kTile elements (warp
-//      ballots + popc), one int32 per block;
-//   2. the caller takes the exclusive scan of the block counts
-//      (torch.cumsum);
-//   3. scatter: each block walks its tile in kRounds rounds of kThreads
-//      consecutive elements, ranks the flagged ones by a warp ballot and
-//      a shuffle scan of the warp totals, and writes each value to its
-//      final slot offset[block] + rank.  No write depends on block order.
+// K6 (pack_plane_kernel): the same design on the int32 plane, ONE launch
+// after one cudaMemsetAsync of its workspace.  Bound on the card: device
+// memory.  The function reads each 4-byte plane element once and writes
+// the whole cap-sized u16 stream (the kept words, then the zero tail) and
+// the count: 6 * cap + 4 bytes at cap = m, 0.0376 ms at the 64 MiB
+// chunk's 16384 x 1280 plane.  A tile is 16384 elements (64 KB; 1280
+// tiles at the main shape), cut at 16-byte boundaries of the plane's
+// address, the first one 0-3 elements early; a block takes its tile by
+// ticket and
+//   1. loads each lane's 64 elements as sixteen streaming 16-byte
+//      vectors into registers (a warp's 2048 elements are contiguous;
+//      elements read one by one only at an unaligned head or the tail)
+//      and counts their flags (bit 16);
+//   2. warp 0 publishes the tile's count and looks back for its offset;
+//      the tile that holds element m - 1 writes the count;
+//   3. each warp ranks its kept words, round by round, by four ballots
+//      (one for each element of a lane's vector), and puts them, in
+//      index order, into a shared run of u16 that starts at the output
+//      offset's place in its 16-byte group (excl & 7 words);
+//   4. the block writes its run clipped at cap with streaming 16-byte
+//      stores, single words only in the two partial vectors at its ends.
+// Tickets past the last tile zero the tail [min(count, cap), cap) in
+// shares, as K3's do.  The variants measured and not kept are in PERF.md
+// section 6.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -71,89 +83,42 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRounds = 16;
-constexpr int kTile = kThreads * kRounds;  // elements per block
-constexpr unsigned kFull = 0xFFFFFFFFu;
-
-// K6's source: word and flag fused in one int32 element.
-struct FusedPlane {
-  using Out = uint16_t;
-  const int32_t* plane;
-  __device__ bool flag(int64_t i) const { return (plane[i] >> 16) & 1; }
-  __device__ bool load(int64_t i, Out* v) const {
-    const int32_t p = plane[i];
-    *v = static_cast<uint16_t>(p & 0xFFFF);
-    return (p >> 16) & 1;
+// Zero out[a, b) of a 16-byte aligned array of T: single elements at the
+// unaligned ends, 16-byte stores between.  Called by every thread of a
+// block of kThreads.
+template <class T, int kThreads>
+__device__ void zero_range(T* __restrict__ out, int64_t a, int64_t b) {
+  constexpr int64_t kV = 16 / sizeof(T);   // elements a 16-byte store
+  if (a >= b) return;
+  const int64_t av = (a + kV - 1) & ~(kV - 1);
+  const int64_t bv = b & ~(kV - 1);
+  if (av >= bv) {
+    for (int64_t i = a + threadIdx.x; i < b; i += kThreads) out[i] = 0;
+    return;
   }
-};
+  for (int64_t i = a + threadIdx.x; i < av; i += kThreads) out[i] = 0;
+  for (int64_t i = bv + threadIdx.x; i < b; i += kThreads) out[i] = 0;
+  for (int64_t q = av / kV + threadIdx.x; q < bv / kV; q += kThreads)
+    reinterpret_cast<uint4*>(out)[q] = make_uint4(0u, 0u, 0u, 0u);
+}
 
-template <class Src>
-__global__ void __launch_bounds__(kThreads)
-count_kernel(Src src, int64_t m, int32_t* __restrict__ counts) {
-  __shared__ int s_warp[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t base = int64_t(blockIdx.x) * kTile;
-  int total = 0;
-#pragma unroll 4
-  for (int r = 0; r < kRounds; ++r) {
-    const int64_t i = base + int64_t(r) * kThreads + threadIdx.x;
-    const bool f = i < m && src.flag(i);
-    total += __popc(__ballot_sync(kFull, f));
-  }
-  if (lane == 0) s_warp[warp] = total;
+// A ticket past the last of `tiles` tiles: share `tile - tiles` of the
+// `zero_shares` shares of the zero tail [min(count, cap), cap), once the
+// last tile's inclusive prefix (the count) is published in `desc`.  The
+// tiles hold lower tickets, so their blocks are running.  Each share is
+// a whole number of 16-byte vectors long.
+template <class T, int kThreads>
+__device__ void zero_share(T* __restrict__ out, unsigned long long* desc,
+                           int tiles, int tile, int zero_shares,
+                           int64_t cap, int* s_count) {
+  constexpr int64_t kV = 16 / sizeof(T);
+  if (threadIdx.x == 0) *s_count = lookback::wait_prefix(desc, tiles - 1);
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int s = 0;
-    for (int w = 0; w < kWarps; ++w) s += s_warp[w];
-    counts[blockIdx.x] = s;
-  }
-}
-
-template <class Src>
-__global__ void __launch_bounds__(kThreads)
-scatter_kernel(Src src, int64_t m, const int64_t* __restrict__ offsets,
-               typename Src::Out* __restrict__ out, int64_t cap) {
-  __shared__ int s_pre[kWarps];
-  __shared__ int s_tot;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t base = int64_t(blockIdx.x) * kTile;
-  int64_t at = offsets[blockIdx.x];
-  for (int r = 0; r < kRounds; ++r) {
-    const int64_t i = base + int64_t(r) * kThreads + threadIdx.x;
-    typename Src::Out v = 0;
-    const bool f = i < m && src.load(i, &v);
-    const unsigned ballot = __ballot_sync(kFull, f);
-    const int lane_rank = __popc(ballot & ((1u << lane) - 1u));
-    if (lane == 0) s_pre[warp] = __popc(ballot);
-    __syncthreads();
-    if (warp == 0) {
-      // exclusive scan of the kWarps warp totals by shuffles
-      const int x = lane < kWarps ? s_pre[lane] : 0;
-      int incl = x;
-#pragma unroll
-      for (int o = 1; o < kWarps; o <<= 1) {
-        const int y = __shfl_up_sync(kFull, incl, o);
-        if (lane >= o) incl += y;
-      }
-      if (lane < kWarps) s_pre[lane] = incl - x;
-      if (lane == kWarps - 1) s_tot = incl;
-    }
-    __syncthreads();
-    if (f) {
-      const int64_t o = at + s_pre[warp] + lane_rank;
-      if (o < cap) out[o] = v;
-    }
-    at += s_tot;
-    __syncthreads();  // s_pre / s_tot are rewritten next round
-  }
-}
-
-inline unsigned blocks_for(int64_t m) {
-  return unsigned((m + kTile - 1) / kTile);
+  const int64_t lo = *s_count < cap ? int64_t(*s_count) : cap;
+  const int64_t share =
+      ((cap - lo + zero_shares - 1) / zero_shares + kV - 1) & ~(kV - 1);
+  const int64_t a = lo + (tile - tiles) * share;
+  zero_range<T, kThreads>(out, a, a + share < cap ? a + share : cap);
 }
 
 // --- K3: one pass with a decoupled look-back -------------------------------
@@ -171,22 +136,6 @@ constexpr int64_t kZeroShare = 32768;      // tail bytes a zeroing ticket
 constexpr int kMaxZeroShares = 256;
 static_assert(kSeg % 512 == 0 && kRounds % kBatch == 0, "tile shape");
 
-// Zero out[a, b): bytes at the unaligned ends, 16-byte stores between
-// (`out` is 16-byte aligned).
-__device__ void zero_range(uint8_t* __restrict__ out, int64_t a, int64_t b) {
-  if (a >= b) return;
-  const int64_t a16 = (a + 15) & ~int64_t(15);
-  const int64_t b16 = b & ~int64_t(15);
-  if (a16 >= b16) {
-    for (int64_t i = a + threadIdx.x; i < b; i += kThreads) out[i] = 0;
-    return;
-  }
-  for (int64_t i = a + threadIdx.x; i < a16; i += kThreads) out[i] = 0;
-  for (int64_t i = b16 + threadIdx.x; i < b; i += kThreads) out[i] = 0;
-  for (int64_t q = a16 / 16 + threadIdx.x; q < b16 / 16; q += kThreads)
-    reinterpret_cast<uint4*>(out)[q] = make_uint4(0u, 0u, 0u, 0u);
-}
-
 __global__ void __launch_bounds__(kThreads)
 pack_bytes_kernel(const uint8_t* __restrict__ vals,
                   const uint8_t* __restrict__ flags, int64_t m, int head,
@@ -203,14 +152,9 @@ pack_bytes_kernel(const uint8_t* __restrict__ vals,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int tile = lookback::take_ticket(ws, &s_tile);
-  if (tile >= tiles) {   // a share of the zero tail [min(count, cap), cap)
-    if (threadIdx.x == 0) s_excl = lookback::wait_prefix(ws + 1, tiles - 1);
-    __syncthreads();
-    const int64_t lo = s_excl < cap ? int64_t(s_excl) : cap;
-    const int64_t share = ((cap - lo + zero_shares - 1) / zero_shares + 15) &
-                          ~int64_t(15);
-    const int64_t a = lo + (tile - tiles) * share;
-    zero_range(out, a, a + share < cap ? a + share : cap);
+  if (tile >= tiles) {
+    zero_share<uint8_t, kThreads>(out, ws + 1, tiles, tile, zero_shares, cap,
+                                  &s_excl);
     return;
   }
   // element index of the tile's first flag: tiles are cut at 16-byte
@@ -291,31 +235,123 @@ pack_bytes_kernel(const uint8_t* __restrict__ vals,
 
 }  // namespace k3
 
+// --- K6: one pass with a decoupled look-back -------------------------------
+
+namespace k6 {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 16384;               // int32 elements a tile
+constexpr int kSeg = kTile / kWarps;       // elements a warp
+constexpr int kVecs = kSeg / 128;          // 16-byte vectors a lane
+constexpr int64_t kZeroShare = 16384;      // tail words a zeroing ticket
+constexpr int kMaxZeroShares = 256;
+static_assert(kSeg % 128 == 0, "tile shape");
+
+// The 4 elements from element e of p on; elements outside [0, m) read as
+// 0 (no flag).  `p + e` is 16-byte aligned (the tiles are cut so), and a
+// vector wholly inside [0, m) is one streaming 16-byte load; only the
+// head and tail vectors are read element by element.
+__device__ __forceinline__ int4 load4(const int32_t* __restrict__ p,
+                                      int64_t e, int64_t m) {
+  if (e >= 0 && e + 4 <= m)
+    return __ldcs(reinterpret_cast<const int4*>(p + e));
+  int w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) w[j] = (e + j >= 0 && e + j < m) ? p[e + j] : 0;
+  return make_int4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ unsigned flag(int x) { return (x >> 16) & 1; }
+
+__global__ void __launch_bounds__(kThreads)
+pack_plane_kernel(const int32_t* __restrict__ plane, int64_t m, int head,
+                  int tiles, int zero_shares, int64_t cap,
+                  uint16_t* __restrict__ out, unsigned long long* ws,
+                  int32_t* __restrict__ n_out) {
+  __shared__ __align__(16) uint16_t s_out[kTile + 8];
+  __shared__ int s_warp[kWarps];
+  __shared__ int s_tile;
+  __shared__ int s_excl;
+  __shared__ int s_agg;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int tile = lookback::take_ticket(ws, &s_tile);
+  if (tile >= tiles) {
+    zero_share<uint16_t, kThreads>(out, ws + 1, tiles, tile, zero_shares,
+                                   cap, &s_excl);
+    return;
+  }
+  // the warp's first element: tiles are cut at 16-byte boundaries of the
+  // plane's address, the first one `head` elements early; vector h of a
+  // lane holds elements seg + 128 h + 4 lane + [0, 4)
+  const int64_t seg = int64_t(tile) * kTile - head + warp * kSeg;
+  int4 v[kVecs];
+  int cnt = 0;
+#pragma unroll
+  for (int h = 0; h < kVecs; ++h) {
+    v[h] = load4(plane, seg + 128 * h + 4 * lane, m);
+    cnt += flag(v[h].x) + flag(v[h].y) + flag(v[h].z) + flag(v[h].w);
+  }
+  const int wcnt = lookback::warp_sum(cnt);   // the warp's count
+  if (lane == 0) s_warp[warp] = wcnt;
+  __syncthreads();
+  if (warp == 0) {
+    const int agg = lookback::warp_offsets<kWarps>(
+        lane < kWarps ? s_warp[lane] : 0, s_warp);
+    const int excl = lookback::look_back(ws + 1, tile, agg);
+    if (lane == 0) {
+      s_excl = excl;
+      s_agg = agg;
+      if (tile == tiles - 1) *n_out = excl + agg;
+    }
+  }
+  __syncthreads();
+  const int64_t excl = s_excl;
+  const int agg = s_agg;
+  // the run's first word sits at its output offset's place in a 16-byte
+  // group of 8 words, so the run's 16-byte vectors are the output's
+  const int shift = int(excl & 7);
+  if (wcnt != 0) {          // warp-uniform
+    const unsigned below = (1u << lane) - 1u;
+    int o = shift + s_warp[warp];
+#pragma unroll
+    for (int h = 0; h < kVecs; ++h) {
+      // the kept words of round h rank by lane, then by place in the lane
+      const unsigned b0 = __ballot_sync(lookback::kFull, flag(v[h].x));
+      const unsigned b1 = __ballot_sync(lookback::kFull, flag(v[h].y));
+      const unsigned b2 = __ballot_sync(lookback::kFull, flag(v[h].z));
+      const unsigned b3 = __ballot_sync(lookback::kFull, flag(v[h].w));
+      int at = o + __popc(b0 & below) + __popc(b1 & below) +
+               __popc(b2 & below) + __popc(b3 & below);
+      if (flag(v[h].x)) s_out[at++] = uint16_t(v[h].x);
+      if (flag(v[h].y)) s_out[at++] = uint16_t(v[h].y);
+      if (flag(v[h].z)) s_out[at++] = uint16_t(v[h].z);
+      if (flag(v[h].w)) s_out[at] = uint16_t(v[h].w);
+      o += __popc(b0) + __popc(b1) + __popc(b2) + __popc(b3);
+    }
+  }
+  __syncthreads();
+  const int64_t lo = excl;
+  const int64_t hi = excl + agg < cap ? excl + agg : cap;
+  if (lo >= hi) return;
+  const int64_t g0 = lo - shift;    // 16-byte aligned
+  const int nvec = int((hi - g0 + 7) / 8);
+  for (int q = threadIdx.x; q < nvec; q += kThreads) {
+    const int64_t g = g0 + 8 * int64_t(q);
+    if (g >= lo && g + 8 <= hi) {
+      __stcs(reinterpret_cast<uint4*>(out + g),
+             *reinterpret_cast<const uint4*>(s_out + 8 * q));
+    } else {
+      for (int j = 0; j < 8; ++j)
+        if (g + j >= lo && g + j < hi) out[g + j] = s_out[8 * q + j];
+    }
+  }
+}
+
+}  // namespace k6
+
 }  // namespace
-
-extern "C" int lrzt_pack_tile() { return kTile; }
-
-extern "C" int lrzt_pack_plane_count(const void* plane, int64_t m,
-                                     void* counts, void* stream) {
-  if (m <= 0) return int(cudaErrorInvalidValue);
-  const FusedPlane src{static_cast<const int32_t*>(plane)};
-  count_kernel<<<blocks_for(m), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      src, m, static_cast<int32_t*>(counts));
-  return int(cudaGetLastError());
-}
-
-extern "C" int lrzt_pack_plane_scatter(const void* plane, int64_t m,
-                                       const void* offsets, void* out,
-                                       int64_t cap, void* stream) {
-  if (m <= 0) return int(cudaErrorInvalidValue);
-  const FusedPlane src{static_cast<const int32_t*>(plane)};
-  scatter_kernel<<<blocks_for(m), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      src, m, static_cast<const int64_t*>(offsets),
-      static_cast<uint16_t*>(out), cap);
-  return int(cudaGetLastError());
-}
 
 // K3.  `ws` holds `ws_slots` 8-byte slots, at least lrzt_pack_bytes_slots(m);
 // `out` (16-byte aligned) holds cap bytes; `n` is one int32 on the device.
@@ -351,4 +387,39 @@ extern "C" int lrzt_pack_bytes(const void* vals, const void* flags,
 // alignment: the ticket counter and one descriptor a tile.
 extern "C" int lrzt_pack_bytes_slots(int64_t m) {
   return int((m + 15 + k3::kTile - 1) / k3::kTile + 1);
+}
+
+// K6.  `plane` holds m int32 elements (4-byte aligned); `ws` holds
+// `ws_slots` 8-byte slots, at least lrzt_pack_plane_slots(m); `out`
+// (16-byte aligned) holds cap uint16 words; `n` is one int32 on the
+// device.
+extern "C" int lrzt_pack_plane(const void* plane, int64_t m, void* out,
+                               int64_t cap, void* ws, int64_t ws_slots,
+                               void* n, void* stream) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(plane);
+  if (m <= 0 || m >= (int64_t(1) << 31) || cap < 0 || (p & 3u) != 0 ||
+      (reinterpret_cast<uintptr_t>(out) & 15u) != 0)
+    return int(cudaErrorInvalidValue);
+  const int head = int((p & 15u) >> 2);
+  const int64_t tiles = (head + m + k6::kTile - 1) / k6::kTile;
+  if (ws_slots < tiles + 1) return int(cudaErrorInvalidValue);
+  int64_t shares = (cap + k6::kZeroShare - 1) / k6::kZeroShare;
+  shares = shares < 1 ? 1 : shares > k6::kMaxZeroShares
+                                ? k6::kMaxZeroShares : shares;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = cudaMemsetAsync(
+      ws, 0, size_t(tiles + 1) * sizeof(unsigned long long), s);
+  if (err != cudaSuccess) return int(err);
+  k6::pack_plane_kernel<<<dim3(unsigned(tiles + shares)), k6::kThreads, 0,
+                          s>>>(
+      static_cast<const int32_t*>(plane), m, head, int(tiles), int(shares),
+      cap, static_cast<uint16_t*>(out), static_cast<unsigned long long*>(ws),
+      static_cast<int32_t*>(n));
+  return int(cudaGetLastError());
+}
+
+// Workspace slots a K6 call with 0 < m < 2**31 elements needs at any
+// alignment: the ticket counter and one descriptor a tile.
+extern "C" int lrzt_pack_plane_slots(int64_t m) {
+  return int((m + 3 + k6::kTile - 1) / k6::kTile + 1);
 }

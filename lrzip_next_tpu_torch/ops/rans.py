@@ -158,8 +158,9 @@ def read_back(freqs, states, packed, n_words):
             packed[:nw].cpu().numpy().view(np.uint16))
 
 
-def encode_block(data, ctx_bits: int = 6, device="cpu") -> bytes:
-    """Bytes in, payload bytes out, encoded on ``device``."""
+def encode_block(data, ctx_bits: int = 6, device="cuda") -> bytes:
+    """Bytes in, payload bytes out, encoded on ``device`` (the card unless
+    the caller asks for the CPU; raises where there is no card)."""
     arr = np.frombuffer(data, np.uint8) if isinstance(
         data, (bytes, bytearray, memoryview)) else np.asarray(
             data, np.uint8)
@@ -260,8 +261,10 @@ def states_final(xf: torch.Tensor) -> bool:
     return bool((xf == L_INIT).all())
 
 
-def decode_block(payload: bytes, device="cpu") -> bytes:
-    """Payload bytes in, the block's bytes out, decoded on ``device``."""
+def decode_block(payload: bytes, device="cuda") -> bytes:
+    """Payload bytes in, the block's bytes out, decoded on ``device`` (the
+    card unless the caller asks for the CPU; raises where there is no
+    card)."""
     n, ctx_bits, k, t_len, freqs, states, words = parse_payload(payload)
     if n == 0:
         return b""

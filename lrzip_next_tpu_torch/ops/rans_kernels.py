@@ -10,7 +10,13 @@ of ``T = len(lit) // K`` bytes each, lane ``l`` at ``lit[l*T : (l+1)*T]``
 
 - ``joint_histogram``: (2^ctx_bits, 256) int32 counts of (context,
   symbol) over the real positions of the leading ``T // srate`` span
-  positions of every lane (``csrc/rans_hist.cu``).
+  positions of every lane (``csrc/rans_hist.cu``: one C call; a thread a
+  16-byte vector of a lane's samples, each sample's context the previous
+  byte in registers; every CTA counts into its own copy of the table in
+  shared memory, two 16-bit counters a word, so that no sample is a
+  global atomic, at ctx_bits 8 too, and adds its nonzero cells to the
+  output once; the C entry sizes the grid so that no CTA takes 2^16
+  samples.  Bound: the launch and the atomics, not the 1 MB of samples).
 - ``encode_scan``: the K-lane rANS encode, run from ``t = T-1`` down to
   0: states start at 2^16; a lane whose state ``x >= f << 20`` emits its
   low 16 bits and shifts; then ``x = (x // f) * M + cum + x % f``, the
@@ -111,10 +117,9 @@ def joint_histogram(lit: torch.Tensor, n: int, ctx_bits: int, srate: int,
     if lit.device.type == "cpu":
         return joint_histogram_reference(lit, n, ctx_bits, srate, k)
     t_len = lit.shape[0] // k
-    counts = torch.zeros((1 << ctx_bits, 256), dtype=torch.int32,
+    counts = torch.empty((1 << ctx_bits, 256), dtype=torch.int32,
                          device=lit.device)
-    lib = _build.library()
-    _build.check(lib.lrzt_rans_hist(
+    _build.check(_build.library().lrzt_rans_hist(
         lit.data_ptr(), t_len, k, max(t_len // srate, 1), n, ctx_bits,
         counts.data_ptr(), _build.stream_ptr(lit.device)), "rans_hist")
     hist_launches += 1

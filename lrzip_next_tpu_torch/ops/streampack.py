@@ -12,11 +12,13 @@ Both return ``(packed, count)``: a ``cap``-sized output with the kept
 elements first and zeros past them (the padding reaches the rANS planes,
 so it must be deterministic), and the number of set flags as a 0-dim
 int32 tensor.  Elements ranked at or past ``cap`` are dropped; the count
-still counts them.  A CUDA tensor runs ``csrc/streampack.cu``: for K3 one
-launch, after one ``cudaMemsetAsync`` of a small per-call workspace, of
-a one-pass compaction with a decoupled look-back that also writes the
-zero tail and the count; for K6 a count pass, ``torch.cumsum`` over the
-block counts and a scatter pass.  A CPU tensor runs the plain version.
+still counts them.  A CUDA tensor runs ``csrc/streampack.cu``: for each
+of K3 and K6 one launch, after one ``cudaMemsetAsync`` of a small
+per-call workspace, of a one-pass compaction with a decoupled look-back
+(``csrc/lookback.cuh``) that writes the kept elements with 16-byte
+stores, the zero tail and the count, into an output from ``torch.empty``.
+Bound: device memory (K6: the plane read once, the ``cap`` words and the
+count written).  A CPU tensor runs the plain version.
 
 Counterparts of ``lrzip_next_tpu/ops/streampack.py``
 (``pack_stream_pallas``, ``pack_plane_pallas``) and of their XLA twin
@@ -58,52 +60,29 @@ def pack_plane_reference(plane: torch.Tensor, cap: int):
                               torch.int16)
 
 
-def _pack_plane(plane: torch.Tensor, cap: int):
-    """K6's count pass over ``plane``, exclusive scan of the block counts,
-    scatter pass; launches nothing for an empty plane."""
-    device = plane.device
-    m = plane.numel()
-    out = torch.zeros(cap, dtype=torch.int16, device=device)
-    if m == 0:
-        return out, torch.zeros((), dtype=torch.int32, device=device)
-    lib = _build.library()
-    tile = lib.lrzt_pack_tile()
-    counts = torch.empty(-(-m // tile), dtype=torch.int32, device=device)
-    stream = _build.stream_ptr(device)
-    _build.check(lib.lrzt_pack_plane_count(plane.data_ptr(), m,
-                                           counts.data_ptr(), stream),
-                 "lrzt_pack_plane_count")
-    incl = torch.cumsum(counts, 0, dtype=torch.int64)
-    offsets = incl - counts
-    _build.check(lib.lrzt_pack_plane_scatter(
-        plane.data_ptr(), m, offsets.data_ptr(), out.data_ptr(), cap,
-        stream), "lrzt_pack_plane_scatter")
-    return out, incl[-1].to(torch.int32)
-
-
-def _pack_bytes(vals: torch.Tensor, flags: torch.Tensor, cap: int):
-    """K3's one-pass kernel on CUDA tensors: the ``cap`` bytes (zeros past
-    the count, written by the kernel) and the 0-dim int32 count; launches
+def _one_pass(ptrs, m: int, cap: int, dtype: torch.dtype, device,
+              entry: str, what: str):
+    """One one-pass compaction kernel (C entry ``entry``, its workspace
+    sized by ``entry + "_slots"``) over the ``m`` elements at the device
+    pointers ``ptrs``: the ``cap`` outputs of ``dtype`` (zeros past the
+    count, written by the kernel) and the 0-dim int32 count; launches
     nothing for an empty input."""
-    device = vals.device
-    m = vals.shape[0]
     if m == 0:
-        return (torch.zeros(cap, dtype=torch.uint8, device=device),
+        return (torch.zeros(cap, dtype=dtype, device=device),
                 torch.zeros((), dtype=torch.int32, device=device))
     if m >= 1 << 31:
-        raise ValueError(f"pack_stream: {m} elements; the kernel takes "
-                         "fewer than 2**31")
+        raise ValueError(f"{what}: {m} elements; the kernel takes fewer "
+                         "than 2**31")
     lib = _build.library()
-    out = torch.empty(cap, dtype=torch.uint8, device=device)
+    out = torch.empty(cap, dtype=dtype, device=device)
     # freed on return, maybe before the kernel ends: the caching allocator
     # hands the block only to work queued after it on this stream
-    ws = torch.empty(lib.lrzt_pack_bytes_slots(m), dtype=torch.int64,
+    ws = torch.empty(getattr(lib, entry + "_slots")(m), dtype=torch.int64,
                      device=device)
     n = torch.empty((), dtype=torch.int32, device=device)
-    _build.check(lib.lrzt_pack_bytes(
-        vals.data_ptr(), flags.data_ptr(), m, out.data_ptr(), cap,
-        ws.data_ptr(), ws.shape[0], n.data_ptr(),
-        _build.stream_ptr(device)), "lrzt_pack_bytes")
+    _build.check(getattr(lib, entry)(
+        *ptrs, m, out.data_ptr(), cap, ws.data_ptr(), ws.shape[0],
+        n.data_ptr(), _build.stream_ptr(device)), entry)
     return out, n
 
 
@@ -128,7 +107,9 @@ def pack_stream(vals: torch.Tensor, flags: torch.Tensor, cap: int):
         _check_device(t, "pack_stream")
     if vals.device.type == "cpu":
         return pack_stream_reference(vals, flags, cap)
-    res = _pack_bytes(vals, flags, cap)
+    res = _one_pass((vals.data_ptr(), flags.data_ptr()), vals.shape[0], cap,
+                    torch.uint8, vals.device, "lrzt_pack_bytes",
+                    "pack_stream")
     if vals.shape[0]:
         stream_launches += 1
     return res
@@ -143,7 +124,8 @@ def pack_plane(plane: torch.Tensor, cap: int):
     _check_device(plane, "pack_plane")
     if plane.device.type == "cpu":
         return pack_plane_reference(plane, cap)
-    res = _pack_plane(plane, cap)
+    res = _one_pass((plane.data_ptr(),), plane.numel(), cap, torch.int16,
+                    plane.device, "lrzt_pack_plane", "pack_plane")
     if plane.numel():
         plane_launches += 1
     return res

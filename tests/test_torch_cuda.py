@@ -1316,3 +1316,242 @@ def test_k3_raises_from_2_to_the_31_elements(cuda):
     assert SP.stream_launches == before
     del vals, flags
     torch.cuda.empty_cache()
+
+
+# --- K6: one pass with a decoupled look-back --------------------------------
+
+_K6_TILE = 16384
+
+
+def _k6_plane(m: int, density: float, seed: int, cuda, offset: int = 0):
+    """K5's fused plane (word | 1 << 16 at a flag, 0 elsewhere) as a view
+    ``offset`` int32 elements into a larger buffer."""
+    rng = np.random.default_rng(seed)
+    flags = rng.random(m + offset) < density
+    words = rng.integers(0, 1 << 16, m + offset, dtype=np.int64)
+    full = torch.from_numpy(np.where(flags, words | (1 << 16), 0
+                                     ).astype(np.int32)).to(cuda)
+    return full[offset:]
+
+
+def _k6_equal(plane, cap):
+    before = SP.plane_launches
+    got, n = SP.pack_plane(plane, cap)
+    torch.cuda.synchronize()
+    assert SP.plane_launches == before + 1
+    ref, ref_n = SP.pack_plane_reference(plane, cap)
+    assert n.is_cuda and n.dtype == torch.int32 and n.dim() == 0
+    assert int(n) == int(ref_n) == int(((plane >> 16) & 1).sum())
+    assert got.shape == (cap,) and got.dtype == torch.int16
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_k6_takes_a_plane_view_past_alignment(cuda, offset):
+    plane = _k6_plane(3 * _K6_TILE + 99, 0.4, offset, cuda, offset)
+    assert plane.data_ptr() % 16 == 4 * offset
+    n = int(((plane >> 16) & 1).sum())
+    for cap in (n // 2, n, plane.numel() + 1234):
+        _k6_equal(plane, cap)
+
+
+@pytest.mark.parametrize("m", [_K6_TILE - 1, _K6_TILE, _K6_TILE + 1,
+                               7 * _K6_TILE + 333])
+@pytest.mark.parametrize("density", [0.0, 0.03, 0.4, 1.0])
+def test_k6_count_crosses_tiles_with_every_cap(cuda, density, m):
+    """Counts that cross tile boundaries at every place of a 16-byte
+    group; cap below, at and above the count, and past m."""
+    plane = _k6_plane(m, density, m + int(100 * density), cuda)
+    n = int(((plane >> 16) & 1).sum())
+    for cap in sorted({max(n // 3, 1), n, n + 1, m + 70_001}):
+        _k6_equal(plane, cap)
+
+
+def test_k6_zero_tail_is_zero_on_recycled_memory(cuda):
+    """The output is torch.empty: a block the allocator hands back full of
+    0xFF must come out with the kept words and a zero tail, compared over
+    the full cap."""
+    m = 5 * _K6_TILE + 17
+    cap = m + 3_000
+    for density in (0.4, 0.0):
+        junk = torch.full((cap,), -1, dtype=torch.int16, device=cuda)
+        del junk
+        _k6_equal(_k6_plane(m, density, 11, cuda), cap)
+
+
+def test_k6_main_shape(cuda):
+    """The 64 MiB chunk's plane: 16384 lanes of 1280 steps, about 39% of
+    the elements flagged, cap = m."""
+    plane = _k6_plane(16384 * 1280, 0.386, 12, cuda).view(1280, 16384)
+    _k6_equal(plane, plane.numel())
+
+
+def test_k6_is_one_kernel_and_at_most_one_memset(cuda):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    plane = _k6_plane(4 * _K6_TILE + 3, 0.4, 5, cuda)
+    cap = plane.numel()
+    SP.pack_plane(plane, cap)        # built and loaded before
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            SP.pack_plane(plane, cap)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    kernels = [n for n in names if "pack_plane_kernel" in n]
+    memsets = [n for n in names if "memset" in n.lower()]
+    assert len(kernels) == 3, names
+    assert len(memsets) <= 3 and len(kernels) + len(memsets) == len(names), \
+        names
+
+
+def test_k6_back_to_back_and_on_a_side_stream(cuda):
+    planes = [_k6_plane(2 * 132 * _K6_TILE + 99, (0.2, 0.6)[i % 2], 300 + i,
+                        cuda) for i in range(7)]
+    torch.cuda.synchronize()
+    outs = [SP.pack_plane(p, p.numel()) for p in planes[:6]]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = SP.pack_plane(planes[6], planes[6].numel())
+    torch.cuda.synchronize()
+    for p, (got, n) in zip(planes, outs + [on_side]):
+        ref, ref_n = SP.pack_plane_reference(p, p.numel())
+        assert int(n) == int(ref_n) and torch.equal(got, ref)
+
+
+def test_k6_raises_from_2_to_the_31_elements(cuda):
+    plane = torch.empty(1 << 31, dtype=torch.int32, device=cuda)
+    before = SP.plane_launches
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        SP.pack_plane(plane, 16)
+    assert SP.plane_launches == before
+    del plane
+    torch.cuda.empty_cache()
+
+
+# --- K4: one C call, a table a CTA in 16-bit counters ----------------------
+
+def _k4_equal(lit, n, ctx_bits, srate, k):
+    before = RK.hist_launches
+    got = RK.joint_histogram(lit, n, ctx_bits, srate, k)
+    torch.cuda.synchronize()
+    assert RK.hist_launches == before + 1
+    ref = RK.joint_histogram_reference(lit, n, ctx_bits, srate, k)
+    assert got.dtype == torch.int32 and torch.equal(got, ref)
+    return got
+
+
+@pytest.mark.parametrize("ctx_bits", [0, 4, 6, 8])
+def test_k4_one_symbol(cuda, ctx_bits):
+    """Every sample on one cell: all atomics of a CTA on one 16-bit
+    counter."""
+    k, t = 16384, 1280
+    lit = torch.full((k * t,), 0x61, dtype=torch.uint8, device=cuda)
+    got = _k4_equal(lit, k * t, ctx_bits, 20, k)
+    assert int(got.sum()) == k * 64
+
+
+@pytest.mark.parametrize("srate", [1, 3])
+def test_k4_full_alphabet_at_ctx_bits_8(cuda, srate):
+    k, t = 1024, 512
+    lit = torch.from_numpy(np.random.default_rng(srate).permutation(
+        np.tile(np.arange(256, dtype=np.uint8), k * t // 256))).to(cuda)
+    got = _k4_equal(lit, k * t - 77, 8, srate, k)
+    assert bool((got.sum(0) > 0).all())
+
+
+@pytest.mark.parametrize("t,k,srate", [(1280, 16384, 1280), (1280, 64, 1),
+                                       (2048, 1024, 1), (75, 4096, 75),
+                                       (85, 4096, 1)])
+@pytest.mark.parametrize("ctx_bits", [0, 6, 8])
+def test_k4_r_of_one_and_of_t(cuda, ctx_bits, t, k, srate):
+    """r = 1 and r = T, with T a multiple of 16 and not; n cuts a lane."""
+    rng = np.random.default_rng(t + k + ctx_bits)
+    lit = torch.from_numpy(rng.integers(0, 256, t * k, dtype=np.uint8)
+                           ).to(cuda)
+    for n in (t * k, t * k - t // 2 - 1):
+        _k4_equal(lit, n, ctx_bits, srate, k)
+
+
+@pytest.mark.parametrize("k", [100, 1000, 4097])
+@pytest.mark.parametrize("ctx_bits", [6, 8])
+def test_k4_lanes_not_a_multiple_of_a_cta(cuda, ctx_bits, k):
+    """K lanes whose vectors fill no whole CTA of K4's 512 threads."""
+    rng = np.random.default_rng(k)
+    lit = torch.from_numpy(rng.integers(0, 40, 96 * k, dtype=np.uint8)
+                           ).to(cuda)
+    _k4_equal(lit, 96 * k - 5, ctx_bits, 2, k)
+
+
+@pytest.mark.parametrize("offset", [1, 5, 15])
+def test_k4_takes_a_block_at_any_byte(cuda, offset):
+    rng = np.random.default_rng(offset)
+    full = torch.from_numpy(rng.integers(0, 256, 1024 * 128 + 16,
+                                         dtype=np.uint8)).to(cuda)
+    lit = full[offset:offset + 1024 * 128]
+    assert lit.data_ptr() % 16 == offset
+    for ctx_bits in (6, 8):
+        _k4_equal(lit, lit.numel() - 9, ctx_bits, 2, 1024)
+
+
+def test_k4_two_calls_in_a_row_on_one_stream(cuda):
+    """Two calls queued back to back, neither synchronised before the
+    second: each output is its own."""
+    rng = np.random.default_rng(2)
+    a = torch.from_numpy(rng.integers(0, 256, 16384 * 1280, dtype=np.uint8)
+                         ).to(cuda)
+    b = torch.from_numpy(rng.integers(0, 20, 16384 * 1280, dtype=np.uint8)
+                         ).to(cuda)
+    torch.cuda.synchronize()
+    before = RK.hist_launches
+    outs = [RK.joint_histogram(x, x.numel() - 3, cb, 20, 16384)
+            for x in (a, b) for cb in (6, 8)]
+    torch.cuda.synchronize()
+    assert RK.hist_launches == before + 4
+    refs = [RK.joint_histogram_reference(x, x.numel() - 3, cb, 20, 16384)
+            for x in (a, b) for cb in (6, 8)]
+    for got, ref in zip(outs, refs):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("ctx_bits", [0, 4, 6, 8])
+def test_k4_every_grid(cuda, ctx_bits):
+    """The C entry at shapes it spreads over one CTA, four, its most of
+    128, and more than 128 (where a CTA would otherwise take 2^16
+    samples), on output memory full of garbage: the call zeroes it."""
+    from lrzip_next_tpu_torch.ops import _build
+    lib = _build.library()
+    rng = np.random.default_rng(ctx_bits)
+    # (K, T, srate): 512, 2048, 65536 and 1310720 vectors of 16 samples
+    for k, t, srate in ((128, 640, 10), (512, 640, 10), (16384, 1280, 20),
+                        (16384, 1280, 1)):
+        lit = torch.from_numpy(rng.integers(0, 64, k * t, dtype=np.uint8)
+                               ).to(cuda)
+        n = k * t - 1000
+        ref = RK.joint_histogram_reference(lit, n, ctx_bits, srate, k)
+        out = torch.full_like(ref, -1)
+        assert lib.lrzt_rans_hist(
+            lit.data_ptr(), t, k, t // srate, n, ctx_bits, out.data_ptr(),
+            _build.stream_ptr(lit.device)) == 0, (k, t, srate)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), (k, t, srate)
+
+
+def test_k4_wrapper_raises_on_what_it_does_not_take(cuda):
+    from lrzip_next_tpu_torch.ops import _build
+    lit = torch.zeros(64 * 16, dtype=torch.uint8, device=cuda)
+    out = torch.empty((64, 256), dtype=torch.int32, device=cuda)
+    lib = _build.library()
+    for args in ((16, 0, 16, 1024, 6), (16, 64, 17, 1024, 6),
+                 (16, 64, 16, 1024, 5), (0, 64, 16, 1024, 6)):
+        assert lib.lrzt_rans_hist(lit.data_ptr(), *args, out.data_ptr(),
+                                  _build.stream_ptr(lit.device)) != 0, args
+    before = RK.hist_launches
+    with pytest.raises(ValueError):
+        RK.joint_histogram(lit, 1024, 5, 1, 64)
+    with pytest.raises(ValueError):
+        RK.joint_histogram(lit, 1024, 6, 0, 64)
+    assert RK.hist_launches == before

@@ -5,6 +5,8 @@ Pallas kernels in interpret mode, quantizing, and whole payloads against
 rans.encode_block, each decoded by the native runtime.  The codec is
 integer arithmetic, so every comparison is exact (tolerance 0)."""
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -131,7 +133,7 @@ def test_k5_rejects_bad_table():
 
 
 def _payload_roundtrip(data: np.ndarray, ctx_bits: int) -> bytes:
-    ours = R.encode_block(data, ctx_bits)
+    ours = R.encode_block(data, ctx_bits, device="cpu")
     assert ours == jrans.encode_block(data, ctx_bits)
     assert runtime.rans_decode(ours, len(data)) == data.tobytes()
     return ours
@@ -154,6 +156,22 @@ def test_encode_block_equals_jax_2048_lanes(ctx_bits):
 
 
 def test_encode_block_empty_and_tiny():
-    assert R.encode_block(b"") == jrans.encode_block(b"")
+    assert R.encode_block(b"", device="cpu") == jrans.encode_block(b"")
     _payload_roundtrip(np.frombuffer(b"a", np.uint8), 6)
     _payload_roundtrip(np.frombuffer(b"abracadabra" * 9, np.uint8), 8)
+
+
+def test_block_codec_defaults_to_the_card():
+    """``encode_block`` and ``decode_block`` run on the card unless the
+    caller asks for the CPU, as the port's other entry points do: where
+    there is no card they raise rather than run on the CPU."""
+    for fn in (R.encode_block, R.decode_block):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        return
+    data = _zipf(5_000, 3)
+    payload = R.encode_block(data, 6, device="cpu")
+    for fn, arg in ((R.encode_block, data), (R.decode_block, payload)):
+        with pytest.raises((AssertionError, RuntimeError),
+                           match="CUDA|cuda"):
+            fn(arg)

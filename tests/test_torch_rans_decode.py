@@ -151,7 +151,7 @@ def _payloads(data: np.ndarray, ctx_bits: int) -> dict:
     """The same block encoded by the JAX package, the port, and the
     native runtimes (the JAX package's where this process has it)."""
     out = {"jax": jrans.encode_block(data, ctx_bits),
-           "port": R.encode_block(data, ctx_bits),
+           "port": R.encode_block(data, ctx_bits, device="cpu"),
            "port_runtime": pruntime.rans_encode(data.tobytes(), ctx_bits)}
     if jruntime.available():
         out["jax_runtime"] = jruntime.rans_encode(data.tobytes(), ctx_bits)
@@ -164,7 +164,7 @@ def _payloads(data: np.ndarray, ctx_bits: int) -> dict:
 def test_decode_block_equals_jax_and_runtime(ctx_bits, n):
     data = _zipf(n, ctx_bits * 7 + n)
     for name, payload in _payloads(data, ctx_bits).items():
-        got = R.decode_block(payload)
+        got = R.decode_block(payload, device="cpu")
         assert got == data.tobytes(), name
         assert got == jrans.decode_block(payload), name
         if jruntime.available():
@@ -175,15 +175,16 @@ def test_decode_block_equals_jax_and_runtime(ctx_bits, n):
 def test_decode_block_2048_lanes():
     """Over 2 MiB: K = 2048 lanes, the JAX package's Pallas threshold."""
     data = _zipf((2 << 20) + 4321, 9, hi=32)
-    payload = R.encode_block(data, 6)
+    payload = R.encode_block(data, 6, device="cpu")
     assert payload[2] == 11
-    assert R.decode_block(payload) == data.tobytes()
+    assert R.decode_block(payload, device="cpu") == data.tobytes()
     assert pruntime.rans_decode(payload, len(data)) == data.tobytes()
 
 
 def test_decode_block_empty():
-    empty = R.encode_block(b"")
-    assert R.decode_block(empty) == jrans.decode_block(empty) == b""
+    empty = R.encode_block(b"", device="cpu")
+    assert R.decode_block(empty, device="cpu") == \
+        jrans.decode_block(empty) == b""
     plane = DP.DeviceLitPlane(empty, 0, "cpu")
     plane.check()
     assert plane.literals().shape == (0,)
@@ -191,7 +192,7 @@ def test_decode_block_empty():
 
 def _good_payload():
     data = _zipf(50_000, 123, hi=50)
-    return data, R.encode_block(data, 6)
+    return data, R.encode_block(data, 6, device="cpu")
 
 
 def _repack(payload: bytes, **changes) -> bytes:
@@ -252,7 +253,8 @@ def _message(fn, *args) -> str:
 def test_decode_block_raises_as_jax(fault):
     data, payload = _good_payload()
     bad = _MALFORMED[fault](payload)
-    assert _message(R.decode_block, bad) == _message(jrans.decode_block, bad)
+    assert _message(R.decode_block, bad, "cpu") == \
+        _message(jrans.decode_block, bad)
 
 
 def _plane_checked(cls, payload, u_len, *device):
@@ -305,7 +307,8 @@ def test_header_cannot_size_the_plane(change):
     if change.get("t_len") == "one_more":
         change = {"t_len": t_len + 1}
     bad = _repack(payload, **change)
-    for fn, args in ((R.parse_payload, (bad,)), (R.decode_block, (bad,)),
+    for fn, args in ((R.parse_payload, (bad,)),
+                     (R.decode_block, (bad, "cpu")),
                      (DP.DeviceLitPlane, (bad, len(data), "cpu"))):
         assert _message(fn, *args) == "bad rans payload span length"
     # the longest span an encoder writes, and the native encoder's tight
@@ -313,7 +316,7 @@ def test_header_cannot_size_the_plane(change):
     assert R.parse_payload(_repack(payload, t_len=t_len))[3] == t_len
     native = pruntime.rans_encode(data.tobytes(), 6)
     assert R.parse_payload(native)[3] == -(-len(data) // k)
-    assert R.decode_block(native) == data.tobytes()
+    assert R.decode_block(native, device="cpu") == data.tobytes()
 
 
 @pytest.mark.parametrize("ctx_bits", [0, 4, 6, 8])
