@@ -24,9 +24,12 @@ Phases, in order; any failure exits nonzero before the last line:
    at every cluster size it launches (K = 1024 .. 16384 lanes of 1280
    steps); the replay kernels K8a
    (ragged_concat) and K8c (small_merge) on the piece tables, and K8b
-   (layered_pass) on the fragment tables, that the device replay of the
-   64 MiB long-range chunk and of the 64 MiB pasted-pieces chunk hands
-   them (K8a and K8c also with their own device time).  Beside each
+   (layered_pass) on every layer's piece table, that the device replay of
+   the 64 MiB long-range chunk and of the 64 MiB pasted-pieces chunk hands
+   them (each also with its own device time), and the pasted-pieces
+   chunk's whole layered replay (``replay_pieces_layered``, median of 5);
+   K9 (compact_masked) on the run masks of the chunk's dense candidates,
+   with its device time.  Beside each
    kernel's time stand its bound (see ``bound``) and, where one PyTorch
    call computes the same function, that call's time and the ratio.  K2,
    K10, K3 and K6 also run under ``torch.profiler``: at most one kernel
@@ -139,6 +142,14 @@ def bound(moved_bytes: int, int_ops: int) -> dict:
             "bound_bytes": int(moved_bytes), "bound_ops": int(int_ops)}
 
 
+def set_sectors(mask: torch.Tensor, x: torch.Tensor) -> int:
+    """The 32-byte sectors of the int32 tensor ``x`` that hold an element
+    at a set flag of ``mask`` (from this run's mask and x's address)."""
+    idx = torch.nonzero(mask).squeeze(1)
+    return int(torch.unique_consecutive((idx + x.data_ptr() // 4) // 8)
+               .numel())
+
+
 def compaction_bound(mask: torch.Tensor, payloads, n: int,
                      int_ops: int) -> dict:
     """``bound`` of a compaction (K2, K10) that reads the flags once, each
@@ -148,10 +159,7 @@ def compaction_bound(mask: torch.Tensor, payloads, n: int,
     is the same bound charged with every payload byte, the figure these
     rows carried before the kernel read payloads at set flags only."""
     m = mask.shape[0]
-    idx = torch.nonzero(mask).squeeze(1)
-    sectors = sum(
-        int(torch.unique_consecutive((idx + x.data_ptr() // 4) // 8).numel())
-        for x in payloads)
+    sectors = sum(set_sectors(mask, x) for x in payloads)
     width = 4 * len(payloads)
     res = bound(m + 32 * sectors + width * n + 4, int_ops)
     res["bound_ms_all_payload"] = bound((1 + width) * m + width * n + 4,
@@ -474,16 +482,41 @@ def check_k9(data: np.ndarray, label: str) -> dict:
         e_idx = torch.nonzero(is_end).squeeze(1)
         return idx[s_idx], idx[e_idx], cand[s_idx]
 
-    # bytes: two flags and two int32 payloads in, k triples and the count
-    # out; operations: two flag tests, two ballot ranks and two slots per
-    # element, three moves per run
+    # bytes, by the rule of ``compaction_bound``: both flags once, the
+    # int32 positions only in the 32-byte sectors that hold a run's start
+    # or end, the candidates only in those that hold a start, k triples
+    # and the count out ("all": every payload byte); operations: two flag
+    # tests, two ballot ranks and two slots per element, three moves per
+    # run
+    ops = 6 * m + 3 * k
+    sectors = set_sectors(start | is_end, idx) + set_sectors(start, cand)
+    bnd = bound(2 * m + 32 * sectors + 12 * k + 4, ops)
+    bnd["bound_ms_all_payload"] = bound(10 * m + 12 * k + 4, ops)["bound_ms"]
     res = timed_pair(
         "K9 compact_masked", f"{label}: m={m} runs={k}",
         lambda: compact_masked(start, is_end, idx, cand),
         lambda: compact_masked_reference(start, is_end, idx, cand), same,
-        bound(10 * m + 12 * k + 4, 6 * m + 3 * k), library,
-        "torch.nonzero twice + 3 gathers")
+        bnd, library, "torch.nonzero twice + 3 gathers")
     res.pop("out")
+    # device time: K9's two kernels, and every device operation of the
+    # wrapper (the kernels, the scan of the block counts between them and
+    # the count's conversion)
+    ops_seen = profiled_cuda_events(
+        lambda: compact_masked(start, is_end, idx, cand), f"K9 {label}")
+    kernels = [e for e in ops_seen if "masked_" in e.name]
+    require(kernels, f"K9 {label}: the profiler saw no K9 kernel")
+    calls = max(sum("masked_scatter" in e.name for e in kernels), 1)
+    res["device_ms"] = sum(e.device_time_total for e in kernels) / 1e3 / \
+        calls
+    res["device_ms_all_ops"] = sum(e.device_time_total
+                                   for e in ops_seen) / 1e3 / calls
+    log(f"  K9 {label}: its two kernels {res['device_ms']:.4f} ms a call on "
+        f"the device, all its device operations "
+        f"{res['device_ms_all_ops']:.4f} ms (torch.profiler, {calls} calls "
+        f"seen); bound {bnd['bound_ms']:.4f} ms ({sectors} payload sectors "
+        f"at set flags), every payload byte "
+        f"{bnd['bound_ms_all_payload']:.4f} ms; bound / device "
+        f"{bnd['bound_ms'] / res['device_ms']:.4f}")
     return res
 
 
@@ -678,9 +711,12 @@ def replay_tables(corpus: np.ndarray):
     k, t_len, _ = rans.plan(n_lit)
     lit = SP.pack_stream(job.dev, mask, k * t_len)[0]   # as K7 leaves it
     del job, mask
-    names = ("ragged_concat", "small_merge", "layered_pass")
-    real = {name: getattr(RR, name) for name in names}
-    calls = {name: [] for name in names}
+    # the kernels' wrappers where replay_ragged calls them, the layered
+    # replay where device_path calls it
+    spied = [(RR, "ragged_concat"), (RR, "small_merge"),
+             (RR, "layered_pass"), (DP, "replay_pieces_layered")]
+    real = {name: getattr(mod, name) for mod, name in spied}
+    calls = {name: [] for _, name in spied}
 
     def spy(name):
         def wrapper(*args):
@@ -690,13 +726,13 @@ def replay_tables(corpus: np.ndarray):
             return real[name](*args)
         return wrapper
 
-    for name in names:
-        setattr(RR, name, spy(name))
+    for mod, name in spied:
+        setattr(mod, name, spy(name))
     try:
         out = DP.replay_tokens_device_array(kinds, lengths, dists, lit)
     finally:
-        for name in names:
-            setattr(RR, name, real[name])
+        for mod, name in spied:
+            setattr(mod, name, real[name])
     require(out is not None and
             torch.equal(out, torch.from_numpy(corpus).cuda()),
             "the device replay does not rebuild the chunk")
@@ -708,8 +744,10 @@ def replay_tables(corpus: np.ndarray):
 def check_replay_kernels(corpus: np.ndarray, label: str) -> dict:
     """K8a, K8c and, where the plan is layered, K8b against their plain
     versions on the tables of this chunk's device replay: K8a and K8c take
-    the long and short piece tables, K8b the fragments of a pass.  K8a's
-    and K8c's own device time too (``torch.profiler``)."""
+    the long and short piece tables, K8b each layer's piece table (every
+    pass is held and timed; the row is pass 1's), each also with its own
+    device time (``torch.profiler``).  Where the plan is layered, the
+    whole ``replay_pieces_layered`` too, host clock, median of 5."""
     from lrzip_next_tpu_torch.ops import replay_ragged as RR
     calls = replay_tables(corpus)
     res = {}
@@ -751,16 +789,48 @@ def check_replay_kernels(corpus: np.ndarray, label: str) -> dict:
             bound(2 * nb + 24 * pieces.shape[1], 2 * nb))
         res["k8c"]["device_ms"] = kernel_device_ms(k8c, "small_kernel",
                                                    f"K8c {label}")
-    for i, (buf0, frags, lo) in enumerate(calls["layered_pass"]):
-        nb = table_bytes(frags)
+    for i, (buf0, pieces) in enumerate(calls["layered_pass"]):
+        nb = table_bytes(pieces)
         mine, plain = buf0.clone(), buf0.clone()
+
+        def k8b():
+            return RR.layered_pass(mine, pieces)
+
+        # bytes: the layer's piece bytes in and out and their 24-byte
+        # records; operations: one address and one move per byte
         r = timed_pair(
-            "K8b layered_pass", f"{label}, pass {i + 1}: {frags.shape[1]} "
-            f"fragments, {nb} bytes, {lo.shape[0] - 1} touched cells",
-            lambda: RR.layered_pass(mine, frags, lo),
-            lambda: RR.layered_pass_reference(plain, frags, lo), max_err,
-            bound(2 * nb + 24 * frags.shape[1] + 8 * lo.shape[0], 2 * nb))
-        res.setdefault("k8b", r)
+            "K8b layered_pass", f"{label}, pass {i + 1}: {pieces.shape[1]} "
+            f"pieces, {nb} bytes", k8b,
+            lambda: RR.layered_pass_reference(plain, pieces), max_err,
+            bound(2 * nb + 24 * pieces.shape[1], 2 * nb))
+        r["device_ms"] = kernel_device_ms(k8b, "layered_span_kernel",
+                                          f"K8b {label}, pass {i + 1}")
+        log(f"  K8b {label}, pass {i + 1}: bound / device "
+            f"{r['bound_ms'] / r['device_ms']:.4f}")
+        if "k8b" not in res:
+            res["k8b"] = r
+        else:
+            res["k8b"][f"pass{i + 1}_ms"] = r["ms"]
+            res["k8b"][f"pass{i + 1}_device_ms"] = r["device_ms"]
+            res["k8b"][f"pass{i + 1}_bound_ms"] = r["bound_ms"]
+        del mine, plain
+    for args in calls["replay_pieces_layered"]:
+        want = torch.from_numpy(corpus).cuda()
+        times = []
+        for _ in range(6):              # one warm run, then 5 timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = RR.replay_pieces_layered(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        require(torch.equal(out, want), f"replay_pieces_layered of {label} "
+                "does not rebuild the chunk")
+        whole = statistics.median(times[1:])
+        log(f"  replay_pieces_layered {label}: {args[3]} layers, "
+            f"{len(args[0])} pieces, {whole:.3f} ms (host clock, "
+            f"synchronised, median of 5)")
+        res["k8b"]["replay_layered_ms"] = whole
+        del want, out
     for r in res.values():
         r.pop("out")
     log(f"  K8a-c {label}: {none}")
@@ -1066,7 +1136,6 @@ REPLAY_PARTS = (
     ("runtime", "flatten_replay", "flat flatten"),
     ("RR", "flat_tables", "piece tables (check, merge, upload, split)"),
     ("RR", "_pieces", "piece upload"),
-    ("RR", "plan_frags", "plan_frags"),
     ("RR", "ragged_concat", "K8a"),
     ("RR", "small_merge", "K8c"),
     ("RR", "layered_pass", "K8b"),

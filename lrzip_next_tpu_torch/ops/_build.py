@@ -53,7 +53,7 @@ _SIGNATURES = {
     "lrzt_rans_decode_cluster": [_ci, _ci, ctypes.POINTER(_ci)],
     "lrzt_replay_ragged": [_vp, _i64, _vp, _i64, _i64, _vp, _vp],
     "lrzt_replay_small": [_vp, _i64, _vp, _i64, _vp, _i64, _vp],
-    "lrzt_replay_layered": [_vp, _i64, _vp, _i64, _vp, _i64, _vp],
+    "lrzt_replay_layered": [_vp, _i64, _vp, _i64, _vp],
 }
 
 _lib = None

@@ -11,11 +11,10 @@
 //                outside lit reads as 0.
 //   K8c small:   out[dst, dst+len) = lit[src, src+len), in place, for every
 //                piece of its (3, P) table (any order, disjoint).
-//   K8b layered: buf[dst, dst+len) = buf[src, src+len), in place, for the
-//                fragments of the touched 8 KiB cells only (fragments cut
-//                at cell boundaries; lo is the fragment range of every
-//                touched cell); the sources of a pass were completed by
-//                earlier passes and no fragment of the pass writes them.
+//   K8b layered: buf[dst, dst+len) = buf[src, src+len), in place, for every
+//                piece of one layer's (3, P) table (ascending by dst and
+//                disjoint, as K8a's); the sources of a pass were completed
+//                by earlier passes and no piece of the pass writes them.
 //
 // Bound on the card (NVIDIA H100 80GB HBM3): bytes.  Every piece byte is
 // read once and written once, K8a writes its whole output once, and a
@@ -47,6 +46,27 @@
 // tensor's edge live out of line: inlined, they took the kernel from 64 to
 // 118 registers and it ran at 0.064 ms instead of 0.046 (PERF.md).
 //
+// K8b design: K8c's word numbering over a block, on K8a's spans.  The
+// layer's bytes run from its first record's dst to its last record's end;
+// the grid (sized for 8 blocks a multiprocessor; at the kernel's 60
+// registers 4 are resident, so it runs in two waves) walks them in spans
+// of 16 KiB, a span a block at a time.  The block finds the span's first piece
+// by K8a's probe rounds, loads a window of 256 records clipped to the span
+// (again from the first piece where the first load does not hold all of
+// them, and window after window where 256 do not), and numbers the 16-byte
+// destination words its slots touch by a block prefix sum; thread t copies
+// words t, t + 256, and so on, two at a time with all loads issued before
+// either store, each found by a binary search over the slots' prefixes.
+// So one long piece keeps every thread of every block busy, and hundreds
+// of short ones share a block.  A word wholly inside its piece is one
+// 16-byte store, an edge word K8c's widest aligned stores: two pieces (or a
+// piece and a byte this pass does not write) that share a word never lose
+// each other's bytes.  A source word may hold bytes that another block is
+// writing in the same pass (a destination next to the source); realign and
+// store take only the source's own bytes.  The buffer is read and written
+// through one pointer, so its loads are plain loads, never __ldg, and the
+// kernel waits on nothing.
+//
 // K8c design: no cells.  A warp takes 32 consecutive pieces, one record a
 // lane (three coalesced loads), and numbers the 16-byte destination words
 // that its pieces touch by a warp prefix sum; lane l copies words l,
@@ -64,15 +84,17 @@
 // output is skipped, a K8c piece outside either tensor is skipped whole.
 // Every loop and search is bounded by the table's length.  On a table that
 // is not ascending and disjoint K8a stays inside its tensors, but which
-// bytes land is unspecified.  K8b keeps the byte loop of the first port.
+// bytes land is unspecified; K8b likewise (a K8b piece outside the buffer,
+// as a source or a destination, is skipped whole).
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;      // K8b and K8c
-constexpr int kCellThreads = 256;  // K8a
+constexpr int kThreads = 256;      // K8c
+constexpr int kCellThreads = 256;  // K8a and K8b
 constexpr int kCellBits = 13;
 constexpr int kCell = 1 << kCellBits;
 constexpr int kWords = kCell / 16 / kCellThreads;  // words a K8a thread owns
@@ -82,6 +104,9 @@ constexpr int kGroup = 2;          // words a K8a thread has in flight
 constexpr int kWarpsPerBlock = kThreads / 32;
 constexpr int kSmallUnroll = 2;   // K8c words a lane has in flight
 constexpr int64_t kHuge = int64_t(1) << 61;
+constexpr int kSpan = 16384;       // bytes of output a K8b block takes a turn
+constexpr int kLayerGroup = 2;     // K8b words a thread has in flight
+constexpr int kLayerBlocksPerSm = 8;
 
 __device__ __forceinline__ int64_t clamp_huge(int64_t v) {
   return v < -kHuge ? -kHuge : (v > kHuge ? kHuge : v);
@@ -95,17 +120,39 @@ __device__ __forceinline__ uint32_t word_at(const uint4& v, int k) {
   return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
 }
 
+// The loads of a tensor that the kernel only reads go through the
+// read-only cache (kReadOnly); K8b's buffer, which the kernel also writes,
+// takes plain loads.
+template <bool kReadOnly>
+__device__ __forceinline__ uint8_t load_byte(const uint8_t* p) {
+  if constexpr (kReadOnly) {
+    return __ldg(p);
+  } else {
+    return *p;
+  }
+}
+
+template <bool kReadOnly>
+__device__ __forceinline__ uint4 load_word(const uint8_t* p) {
+  if constexpr (kReadOnly) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  } else {
+    return *reinterpret_cast<const uint4*>(p);
+  }
+}
+
 // The bytes buf[first .. first + 16) one at a time, 0 where the index is
 // outside [0, len): a word at the edge of its tensor, rare, so kept out of
 // line where it costs the callers no registers.
-__device__ __noinline__ uint4 edge_word(const uint8_t* __restrict__ buf,
-                                        int64_t len, int64_t first) {
+template <bool kReadOnly>
+__device__ __noinline__ uint4 edge_word(const uint8_t* buf, int64_t len,
+                                        int64_t first) {
   uint32_t w[4] = {0, 0, 0, 0};
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
     const int64_t p = first + i;
     if (p >= 0 && p < len)
-      w[i >> 2] |= uint32_t(__ldg(buf + p)) << (8 * (i & 3));
+      w[i >> 2] |= uint32_t(load_byte<kReadOnly>(buf + p)) << (8 * (i & 3));
   }
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
@@ -113,12 +160,13 @@ __device__ __noinline__ uint4 edge_word(const uint8_t* __restrict__ buf,
 // Aligned 16-byte word g of buf, counted from the 16-byte boundary at or
 // below buf (m = buf's address mod 16): bytes buf[16g - m .. 16g - m + 16),
 // 0 where that index is outside [0, len).
-__device__ __forceinline__ uint4 aligned_word(const uint8_t* __restrict__ buf,
-                                              int64_t len, int m, int64_t g) {
+template <bool kReadOnly>
+__device__ __forceinline__ uint4 aligned_word(const uint8_t* buf, int64_t len,
+                                              int m, int64_t g) {
   const int64_t first = 16 * g - m;
   if (first >= 0 && first <= len - 16)
-    return __ldg(reinterpret_cast<const uint4*>(buf + first));
-  return edge_word(buf, len, first);
+    return load_word<kReadOnly>(buf + first);
+  return edge_word<kReadOnly>(buf, len, first);
 }
 
 // Bytes r .. r + 16 of the 32 bytes a:b.
@@ -158,15 +206,19 @@ struct SourceWord {
   int r;
 };
 
-__device__ __forceinline__ SourceWord load_source(
-    const uint8_t* __restrict__ buf, int64_t len, int m, int64_t sp0, int lo,
-    int hi) {
+template <bool kReadOnly = true>
+__device__ __forceinline__ SourceWord load_source(const uint8_t* buf,
+                                                  int64_t len, int m,
+                                                  int64_t sp0, int lo,
+                                                  int hi) {
   SourceWord s;
   const int64_t x = sp0 + m;
   const int64_t g = x >> 4;
   s.r = int(x & 15);
-  s.a = s.r + lo < 16 ? aligned_word(buf, len, m, g) : make_uint4(0, 0, 0, 0);
-  s.b = (s.r != 0 && s.r + hi > 16) ? aligned_word(buf, len, m, g + 1)
+  s.a = s.r + lo < 16 ? aligned_word<kReadOnly>(buf, len, m, g)
+                      : make_uint4(0, 0, 0, 0);
+  s.b = (s.r != 0 && s.r + hi > 16) ? aligned_word<kReadOnly>(buf, len, m,
+                                                              g + 1)
                                     : make_uint4(0, 0, 0, 0);
   return s;
 }
@@ -479,22 +531,130 @@ small_kernel(const uint8_t* __restrict__ lit, int64_t lit_len,
 // ---------------------------------------------------------------------------
 // K8b
 
-// buf is read and written: no __restrict__.
-__global__ void __launch_bounds__(kThreads)
-layered_kernel(uint8_t* buf, int64_t buf_len,
-               const int64_t* __restrict__ frags, int64_t n_frags,
-               const int64_t* __restrict__ lo) {
-  const int64_t j = blockIdx.x;
-  const int64_t f0 = clamp_index(lo[j], n_frags);
-  const int64_t f1 = clamp_index(lo[j + 1], n_frags);
-  for (int64_t i = f0; i < f1; ++i) {
-    const int64_t d = frags[i];
-    const int64_t s = frags[n_frags + i];
-    const int64_t len = frags[2 * n_frags + i];
-    if (d < 0 || s < 0 || len <= 0 || len > buf_len - d || len > buf_len - s)
-      continue;
-    for (int64_t t = threadIdx.x; t < len; t += kThreads)
-      buf[d + t] = buf[s + t];
+// One window of records clipped to a span of the output: slot t copies
+// bytes [a, b) of the span (offsets from its aligned start) from
+// buf[its index + delta]; excl is the count of the span's words that the
+// slots before t touch.
+struct LayerWindow {
+  int a[kCellThreads], b[kCellThreads], excl[kCellThreads];
+  int64_t delta[kCellThreads];
+  int warp_total[kCellThreads / 32];
+};
+
+// buf is read and written through this one pointer: no __restrict__ and
+// no __ldg on it.
+__global__ void __launch_bounds__(kCellThreads)
+layered_span_kernel(uint8_t* buf, int64_t buf_len,
+                    const int64_t* __restrict__ pieces, int64_t n) {
+  __shared__ LayerWindow w;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const Pieces p{pieces, pieces + n, pieces + 2 * n, n, buf_len};
+  const int mo = int(reinterpret_cast<uintptr_t>(buf) & 15);
+  uint8_t* const base = buf - mo;  // aligned; written only inside the pieces
+  // the layer's bytes as aligned offsets (buf index + mo), from its first
+  // and its last record: [lo, hi)
+  const int64_t size = buf_len + mo;
+  const int64_t lo = clamp_index(clamp_huge(p.dst[0]) + mo, size) &
+                     ~int64_t(15);
+  const int64_t hi = clamp_index(end_key(p.dst[n - 1], p.len[n - 1]) + mo,
+                                 size);
+  for (int64_t o = lo + int64_t(blockIdx.x) * kSpan; o < hi;
+       o += int64_t(gridDim.x) * kSpan) {
+    const int64_t origin = o - mo;    // buf index of the span's byte 0
+    int64_t first = probe_first(p, origin);
+    bool again = true;
+    for (;;) {
+      // the window: one record a thread, clipped to the span
+      const int64_t q = first + tid;
+      int a = 0, b = 0;
+      int64_t delta = 0;
+      bool below = false, reaches = false;
+      if (q < n) {
+        const int64_t d = p.dst[q], s = p.src[q], l = p.len[q];
+        below = end_key(d, l) <= origin;
+        reaches = clamp_huge(d) < origin + kSpan;
+        if (d >= 0 && s >= 0 && l > 0 && l <= buf_len - d &&
+            l <= buf_len - s) {
+          a = int(clamp_index(d - origin, kSpan));
+          b = int(clamp_index(d + l - origin, kSpan));
+          delta = s - d;
+        }
+      }
+      const int cnt = __syncthreads_count(below);
+      const bool more = __syncthreads_or(tid == kCellThreads - 1 && reaches &&
+                                         q + 1 < n);
+      if (more && cnt > 0 && again) {
+        // again from the span's first piece, so that the window holds as
+        // many of the span's pieces as it can
+        again = false;
+        first += cnt;
+        continue;
+      }
+      // number the span's words that the slots touch, across the block
+      const int nw = a < b ? ((b - 1) >> 4) - (a >> 4) + 1 : 0;
+      int incl = nw;
+#pragma unroll
+      for (int k = 1; k < 32; k <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, incl, k);
+        if (lane >= k) incl += t;
+      }
+      if (lane == 31) w.warp_total[warp] = incl;
+      w.a[tid] = a;
+      w.b[tid] = b;
+      w.delta[tid] = delta;
+      __syncthreads();
+      int before = 0, total = 0;
+#pragma unroll
+      for (int i = 0; i < kCellThreads / 32; ++i) {
+        const int t = w.warp_total[i];
+        before += i < warp ? t : 0;
+        total += t;
+      }
+      w.excl[tid] = before + incl - nw;
+      __syncthreads();
+      // the words, kLayerGroup a thread in flight: all their loads are
+      // issued before any store
+      int slot = 0;                 // w.excl[slot] <= every x still to come
+      for (int x0 = 0; x0 < total; x0 += kLayerGroup * kCellThreads) {
+        SourceWord sw[kLayerGroup];
+        int64_t at[kLayerGroup];
+        int wl[kLayerGroup], wh[kLayerGroup];
+#pragma unroll
+        for (int u = 0; u < kLayerGroup; ++u) {
+          const int x = x0 + u * kCellThreads + tid;
+          wl[u] = wh[u] = 0;
+          at[u] = 0;
+          if (x < total) {
+            // the last slot whose first word is at or before x
+            int j = kCellThreads;
+            while (j - slot > 1) {
+              const int mid = (slot + j) >> 1;
+              if (w.excl[mid] <= x) slot = mid; else j = mid;
+            }
+            const int word = (w.a[slot] >> 4) + (x - w.excl[slot]);
+            wl[u] = clamp16(w.a[slot] - 16 * word);
+            wh[u] = clamp16(w.b[slot] - 16 * word);
+            at[u] = o + 16 * int64_t(word);
+            if (wl[u] < wh[u])
+              sw[u] = load_source<false>(buf, buf_len, mo,
+                                         at[u] - mo + w.delta[slot], wl[u],
+                                         wh[u]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kLayerGroup; ++u) {
+          if (wl[u] < wh[u])
+            store_bytes(base + at[u], realign(sw[u].a, sw[u].b, sw[u].r),
+                        wl[u], wh[u]);
+        }
+      }
+      __syncthreads();     // the window is read before it is refilled
+      if (!more) break;
+      first += kCellThreads;
+      again = false;
+    }
   }
 }
 
@@ -534,16 +694,29 @@ extern "C" int lrzt_replay_small(const void* lit, int64_t lit_len,
   return int(cudaGetLastError());
 }
 
-// lo holds n_touched + 1 entries.
+// pieces is (3, n) int64, n >= 1.
 extern "C" int lrzt_replay_layered(void* buf, int64_t buf_len,
-                                   const void* frags, int64_t n_frags,
-                                   const void* lo, int64_t n_touched,
+                                   const void* pieces, int64_t n,
                                    void* stream) {
-  if (buf_len < 0 || n_frags < 0 || n_touched < 1 || n_touched > kMaxGrid)
-    return int(cudaErrorInvalidValue);
-  layered_kernel<<<unsigned(n_touched), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint8_t*>(buf), buf_len, static_cast<const int64_t*>(frags),
-      n_frags, static_cast<const int64_t*>(lo));
+  if (buf_len < 0 || n < 1) return int(cudaErrorInvalidValue);
+  // the device's multiprocessor count, asked once a process and device
+  static std::atomic<int> sm_count[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return int(err);
+  int sms = dev < 64 ? sm_count[dev].load(std::memory_order_relaxed) : 0;
+  if (sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return int(err);
+    if (dev < 64) sm_count[dev].store(sms, std::memory_order_relaxed);
+  }
+  // enough blocks to fill the card, no more than the buffer has spans
+  const int64_t spans = (buf_len + 15) / kSpan + 1;
+  const int64_t fill = int64_t(sms) * kLayerBlocksPerSm;
+  const int64_t blocks = spans < fill ? spans : fill;
+  layered_span_kernel<<<unsigned(blocks), kCellThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint8_t*>(buf), buf_len,
+      static_cast<const int64_t*>(pieces), n);
   return int(cudaGetLastError());
 }

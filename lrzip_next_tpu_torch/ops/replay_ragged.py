@@ -6,13 +6,15 @@ flattens the chunk's match chains at token granularity
 decode is a list of *pieces* ``(dst, src, len)``: layer-0 pieces copy a
 slice of the decoded literal plane, layer-k pieces copy a range of the
 output that pass k-1 completed.  All sources of one pass are read-only
-during it and all destinations are disjoint, so the fragments of a pass
+during it and all destinations are disjoint, so the pieces of a pass
 run in any order.
 
-The piece list (a few records a token) is split into long and short
-pieces and uploaded once, as (3, P) int64 tables of rows dst, src, len
-in absolute byte offsets, ascending by ``dst`` (``piece_tables``).
-Three kernels (``csrc/replay_ragged.cu``) take them:
+The piece list (a few records a token) is uploaded once and cut on the
+device, with no read-back, into (3, P) int64 tables of rows dst, src,
+len in absolute byte offsets, ascending by ``dst``: a flat plan's long
+and short pieces (``flat_tables``), a layered plan's layers
+(``replay_pieces_layered``).  Three kernels (``csrc/replay_ragged.cu``)
+take them:
 
 - K8a ``ragged_concat``: the pieces longer than ``SHORT_LEN`` bytes into
   a zeroed buffer of 8 KiB cells, one block a cell; the block finds its
@@ -24,14 +26,14 @@ Three kernels (``csrc/replay_ragged.cu``) take them:
   place into K8a's output, 32 pieces a warp, their 16-byte destination
   words spread over the lanes.  Counterpart of ``_small_call`` (whose
   output aliases its input).
-- K8b ``layered_pass``: pass k of a layered plan, 8 KiB cells, touched
-  cells only, in place: it reads bytes that passes below k completed and
-  writes bytes that none of them wrote.  Counterpart of ``_layered_call``
+- K8b ``layered_pass``: pass k of a layered plan, in place, on the
+  layer's (3, P) piece table: it reads bytes that passes below k
+  completed and writes bytes that none of them wrote.  Its blocks walk
+  the layer's bytes in 16 KiB spans, find each span's pieces as K8a's
+  blocks find theirs, and spread the span's 16-byte words over the
+  threads as K8c spreads a warp's.  Counterpart of ``_layered_call``
   (which builds a new buffer each pass and copies untouched cells
-  through; in place that copy is not needed).  It takes fragments: the
-  pieces cut at cell boundaries in tensor code on the pieces' device
-  (``plan_frags``), with the per-cell fragment ranges ``lo`` (cell j
-  owns fragments ``lo[j] .. lo[j+1]``).
+  through; in place that copy is not needed).
 
 The TPU kernels' int32-per-byte staging of the plane, the lead and trail
 padding rows, the 16-row DMA windows at 8-aligned rows, the row and lane
@@ -52,10 +54,10 @@ import torch
 
 from . import _build
 
-CELL = 8192                 # bytes per output cell of K8a and K8b
+CELL = 8192                 # bytes per output cell of K8a
 CELL_BITS = 13
 SHORT_LEN = 512             # pieces up to this length go through K8c
-_HUGE = 1 << 61             # K8a's clamp of dst and len (kHuge)
+_HUGE = 1 << 61             # K8a's and K8b's clamp of dst, len (kHuge)
 
 ragged_launches = 0
 layered_launches = 0
@@ -86,44 +88,12 @@ def merge_contiguous(plan_len: np.ndarray, plan_lit: np.ndarray
     return csum[ge] - csum[gs], plan_lit[gs]
 
 
-def plan_frags(dst: torch.Tensor, src: torch.Tensor, length: torch.Tensor,
-               ncells: int, cell_bits: int = CELL_BITS
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Cut (dst, src, len) pieces, int64 tensors ascending by ``dst`` with
-    every length >= 1, at cell boundaries (2^cell_bits bytes), on their
-    device.  Returns the (3, N) int64 fragment table and ``lo``
-    (ncells + 1,) int64, the fragment range of every cell."""
-    cb = cell_bits
-    dev = dst.device
-    ends = dst + length
-    first = dst >> cb
-    nf = ((ends - 1) >> cb) - first + 1
-    idx = torch.repeat_interleave(
-        torch.arange(dst.shape[0], device=dev), nf)
-    k = torch.arange(idx.shape[0], device=dev) - \
-        (torch.cumsum(nf, 0) - nf)[idx]
-    cut = (first[idx] + k) << cb                # cell start of fragment k
-    f_dst = torch.maximum(dst[idx], cut)
-    f_end = torch.minimum(ends[idx], cut + (1 << cb))
-    f_src = src[idx] + (f_dst - dst[idx])
-    frags = torch.stack([f_dst, f_src, f_end - f_dst])
-    lo = torch.searchsorted(f_dst >> cb,
-                            torch.arange(ncells + 1, device=dev))
-    return frags, lo
-
-
-def touched_ranges(lo: torch.Tensor) -> torch.Tensor:
-    """``lo`` with the empty cells dropped: (nt + 1,) int64, the fragment
-    ranges of the cells that hold a fragment."""
-    return torch.cat([lo[:-1][lo[1:] > lo[:-1]], lo[-1:]])
-
-
 # ---------------------------------------------------------------------------
 # the kernels' wrappers and plain versions
 
 
-def _check_tensors(what: str, buf: torch.Tensor, table: torch.Tensor,
-                   *others: torch.Tensor) -> None:
+def _check_tensors(what: str, buf: torch.Tensor, table: torch.Tensor
+                   ) -> None:
     if buf.dtype != torch.uint8 or buf.dim() != 1:
         raise TypeError(f"{what}: bytes must be 1-D uint8, got {buf.dtype} "
                         f"{tuple(buf.shape)}")
@@ -131,15 +101,11 @@ def _check_tensors(what: str, buf: torch.Tensor, table: torch.Tensor,
             table.shape[0] != 3:
         raise TypeError(f"{what}: table must be (3, N) int64, got "
                         f"{table.dtype} {tuple(table.shape)}")
-    for t in others:
-        if t.dtype != torch.int64 or t.dim() != 1 or t.shape[0] < 1:
-            raise TypeError(f"{what}: ranges must be 1-D int64, got "
-                            f"{t.dtype} {tuple(t.shape)}")
-    if any(t.device != buf.device for t in (table, *others)):
+    if table.device != buf.device:
         raise ValueError(f"{what}: tensors on different devices")
     if buf.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {buf.device}")
-    if not all(t.is_contiguous() for t in (buf, table, *others)):
+    if not (buf.is_contiguous() and table.is_contiguous()):
         raise ValueError(f"{what} needs contiguous tensors")
 
 
@@ -165,17 +131,18 @@ def _copy_reference(out: torch.Tensor, src_buf: torch.Tensor,
     out[d] = src_buf[s]
 
 
-def check_order(pieces: torch.Tensor) -> None:
-    """Raise ``ValueError`` unless a K8a table is in the order its kernel
-    searches: the span ``[dst, dst + max(len, 0))`` of every entry, valid
-    or not, ends at or before the next entry's ``dst`` (both clamped to
-    +-2^61 as the kernel clamps them).  The replay's tables hold this by
-    construction: ``dst`` is a running sum of positive lengths, and a
-    subsequence of such a table (``split_pieces``) holds it too."""
+def check_order(pieces: torch.Tensor, what: str = "ragged_concat") -> None:
+    """Raise ``ValueError`` unless a K8a or K8b table is in the order its
+    kernel searches: the span ``[dst, dst + max(len, 0))`` of every
+    entry, valid or not, ends at or before the next entry's ``dst`` (both
+    clamped to +-2^61 as the kernels clamp them).  The replay's tables
+    hold this by construction: ``dst`` is a running sum of positive
+    lengths, and a subsequence of such a table (``split_pieces``, a
+    layer's pieces) holds it too."""
     d = pieces[0].clamp(-_HUGE, _HUGE)
     end = d + pieces[2].clamp(0, _HUGE)
     if bool((end[:-1] > d[1:]).any()):
-        raise ValueError("ragged_concat: pieces not ascending and disjoint")
+        raise ValueError(f"{what}: pieces not ascending and disjoint")
 
 
 def ragged_concat_reference(lit: torch.Tensor, pieces: torch.Tensor,
@@ -248,32 +215,37 @@ def small_merge(out: torch.Tensor, lit: torch.Tensor, pieces: torch.Tensor
     return out
 
 
-def layered_pass_reference(buf: torch.Tensor, frags: torch.Tensor,
-                           lo: torch.Tensor) -> torch.Tensor:
+def layered_pass_reference(buf: torch.Tensor, pieces: torch.Tensor
+                           ) -> torch.Tensor:
     """Plain PyTorch K8b (in place; the gather is complete before the
-    scatter starts)."""
-    _copy_reference(buf, buf, frags)
+    scatter starts); raises ``ValueError`` on a table that
+    ``check_order`` refuses."""
+    check_order(pieces, "layered_pass")
+    _copy_reference(buf, buf, pieces)
     return buf
 
 
-def layered_pass(buf: torch.Tensor, frags: torch.Tensor, lo: torch.Tensor
-                 ) -> torch.Tensor:
-    """K8b: ``buf[dst : dst+len] = buf[src : src+len]`` for every
-    fragment, in place; returns ``buf``.  The caller guarantees that no
-    fragment's source overlaps any fragment's destination (one layer of a
-    layered plan).  ``lo`` is (nt + 1,), the fragment ranges of the nt
-    touched 8 KiB cells, one block each."""
+def layered_pass(buf: torch.Tensor, pieces: torch.Tensor) -> torch.Tensor:
+    """K8b: ``buf[dst : dst+len] = buf[src : src+len]`` for every piece of
+    one layer's (3, P) int64 table, in place; returns ``buf``.  The table
+    is ascending by ``dst`` with disjoint destinations, as
+    ``check_order`` states it, and no piece's source overlaps any piece's
+    destination (one layer of a layered plan).  A piece whose source or
+    destination does not lie inside ``buf`` is skipped whole.  On the CPU
+    a table out of order raises ``ValueError``; the kernel does not check
+    it (that would read the table back), and on such a table it stays
+    inside ``buf`` but which bytes land is not defined.  An empty table
+    launches nothing."""
     global layered_launches
-    _check_tensors("layered_pass", buf, frags, lo)
+    _check_tensors("layered_pass", buf, pieces)
     if buf.device.type == "cpu":
-        return layered_pass_reference(buf, frags, lo)
-    if frags.shape[1] == 0 or lo.shape[0] < 2:
+        return layered_pass_reference(buf, pieces)
+    if pieces.shape[1] == 0:
         return buf
     lib = _build.library()
     _build.check(lib.lrzt_replay_layered(
-        buf.data_ptr(), buf.shape[0], frags.data_ptr(), frags.shape[1],
-        lo.data_ptr(), lo.shape[0] - 1, _build.stream_ptr(buf.device)),
-        "replay_layered")
+        buf.data_ptr(), buf.shape[0], pieces.data_ptr(), pieces.shape[1],
+        _build.stream_ptr(buf.device)), "replay_layered")
     layered_launches += 1
     return buf
 
@@ -352,7 +324,9 @@ def replay_pieces_layered(plan_len: np.ndarray, plan_src: np.ndarray,
     """Execute a layered plan (``runtime.flatten_replay_layered``): pass 0
     places the literal-sourced pieces (K8a, K8c; the deferred ranges stay
     0), pass k copies the layer-k pieces from the output that the passes
-    below k completed (K8b).  Returns the (out_len,) uint8 chunk."""
+    below k completed (K8b, on the layer's columns of the one uploaded
+    table).  Nothing is read back.  Returns the (out_len,) uint8
+    chunk."""
     plan_len = np.asarray(plan_len, np.int64)
     plan_src = np.asarray(plan_src, np.int64)
     plan_layer = np.asarray(plan_layer, np.int32)
@@ -373,11 +347,8 @@ def replay_pieces_layered(plan_len: np.ndarray, plan_src: np.ndarray,
     n_long = int(np.count_nonzero(plan_len[l0] > SHORT_LEN))
     out = _literal_pass(*split_pieces(table[:, :counts[0]], n_long), lit,
                         out_len)
-    ncells = out.shape[0] // CELL
     ends = np.cumsum(counts)
     for k in range(1, n_layers + 1):
         if counts[k]:
-            t = table[:, ends[k - 1]:ends[k]]
-            frags, lo = plan_frags(t[0], t[1], t[2], ncells)
-            layered_pass(out, frags, touched_ranges(lo))
+            layered_pass(out, table[:, ends[k - 1]:ends[k]].contiguous())
     return out[:out_len]

@@ -771,15 +771,24 @@ def test_k8_kernels_never_leave_their_tensors(cuda):
     assert out.shape[0] == 2 * 8192 and not out[~covered].any()
     with pytest.raises(ValueError, match="ascending and disjoint"):
         RR.ragged_concat_reference(lit, shuffled, 2)   # not its input
+    # K8b: a layer's table in dst order whose pieces all lie outside the
+    # view as a source or a destination, then one valid piece among them
     seq = torch.arange(0, 3 * 8192, dtype=torch.int32).to(torch.uint8).to(cuda)
     mine, plain = seq.clone(), seq.clone()
-    lay = torch.tensor([[9000, 8192 * 3 - 4, 100], [10, 0, 8192 * 3 - 50],
-                        [64, 8, 51]], dtype=torch.int64, device=cuda)
-    lo2 = torch.tensor([0, 3], dtype=torch.int64, device=cuda)
-    RR.layered_pass(mine[8192:16384], lay, lo2)
+    lay = torch.tensor([[100, 9000, 8192 * 3 - 4], [8192 * 3 - 50, 10, 0],
+                        [51, 64, 8]], dtype=torch.int64, device=cuda)
+    RR.layered_pass(mine[8192:16384], lay)
     torch.cuda.synchronize()
-    RR.layered_pass_reference(plain[8192:16384], lay, lo2)
+    RR.layered_pass_reference(plain[8192:16384], lay)
+    assert torch.equal(mine, plain) and torch.equal(mine, seq)
+    lay = torch.tensor([[-3, 4000, 8100], [10, 8150, 8000], [3, 42, 2]],
+                       dtype=torch.int64, device=cuda)
+    RR.layered_pass(mine[8192:16384], lay)
+    torch.cuda.synchronize()
+    RR.layered_pass_reference(plain[8192:16384], lay)
     assert torch.equal(mine, plain)
+    assert torch.equal(mine[8192 + 4000:8192 + 4042],
+                       seq[8192 + 8150:8192 + 8192])
     assert torch.equal(mine[:8192], seq[:8192])
     assert torch.equal(mine[16384:], seq[16384:])
 
@@ -825,6 +834,181 @@ def test_k8b_layered_replay_card_equals_cpu(cuda, total):
     assert torch.equal(out.cpu(), ref)
 
 
+def _layer_table(rng, lens, buf_len, gap_hi=1, src_hi=None):
+    """A layer's (3, P) table: destinations ascending from the buffer's
+    second half with gaps of 0 to gap_hi - 1 bytes, sources below
+    ``src_hi`` (the first half), so no source byte is a destination
+    byte (``tests/test_torch_k8b_redesign.py`` emulates such tables)."""
+    lens = np.asarray(lens, np.int64)
+    gaps = rng.integers(0, gap_hi, len(lens))
+    dst = buf_len // 2 + np.cumsum(lens + gaps) - lens
+    assert int(dst[-1] + lens[-1]) <= buf_len
+    src_hi = src_hi or buf_len // 2
+    src = np.asarray([rng.integers(0, src_hi - n + 1) for n in lens],
+                     np.int64)
+    return torch.from_numpy(np.stack([dst, src, lens]).astype(np.int64))
+
+
+def _k8b_card_equals_plain(cuda, base, table, view):
+    """K8b on ``base[view:]`` on the card against the plain version on
+    the CPU; the byte before the view is never written.  Returns the
+    card's buffer, its view and the plain one."""
+    RR.check_order(table)
+    whole = base.to(cuda)
+    mine = whole[view:]
+    before = RR.layered_launches
+    RR.layered_pass(mine, table.to(cuda))
+    torch.cuda.synchronize()
+    assert RR.layered_launches == before + 1
+    plain = RR.layered_pass_reference(base[view:].clone(), table)
+    assert torch.equal(mine.cpu(), plain)
+    assert torch.equal(whole[:view].cpu(), base[:view])
+    return mine, plain
+
+
+@pytest.mark.parametrize("view", [0, 5])
+@pytest.mark.parametrize("length", [1, 15, 16, 17, 511, 512, 513, 4096,
+                                    8191, 8192, 8193])
+def test_k8b_pieces_of_every_length(cuda, length, view):
+    """A layer of pieces all of one length, with and without gaps, in a
+    buffer view ``view`` bytes past its allocation."""
+    rng = np.random.default_rng(length + view)
+    n = 40
+    buf_len = 4 * n * (length + 40) + 64
+    table = _layer_table(rng, [length] * n, buf_len,
+                         gap_hi=1 + 37 * (length % 2))
+    base = torch.from_numpy(rng.integers(0, 256, buf_len + view,
+                                         dtype=np.uint8))
+    _k8b_card_equals_plain(cuda, base, table, view)
+
+
+@pytest.mark.parametrize("k", range(16))
+def test_k8b_every_misalignment(cuda, k):
+    """Source k bytes past its destination mod 16, the buffer a view 3k
+    mod 16 bytes past its allocation, pieces of 1 to 20000 bytes."""
+    rng = np.random.default_rng(300 + k)
+    lens = rng.integers(1, 20_000, 60)
+    buf_len = 2 * int(lens.sum()) + 32 * len(lens) + 64
+    table = _layer_table(rng, lens, buf_len, gap_hi=20,
+                         src_hi=buf_len // 2 - 16).numpy()
+    table[1] += (table[0] + k - table[1]) % 16
+    assert ((table[1] - table[0]) % 16 == k).all()
+    view = (3 * k) % 16
+    base = torch.from_numpy(rng.integers(0, 256, buf_len + view,
+                                         dtype=np.uint8))
+    _k8b_card_equals_plain(cuda, base, torch.from_numpy(table), view)
+
+
+@pytest.mark.parametrize("name", ["short_pieces_many_windows",
+                                  "piece_over_many_spans", "sparse",
+                                  "shared_words"])
+def test_k8b_named_layers(cuda, name):
+    """Hundreds of pieces of 1-40 bytes a span (the block's windows one
+    after another), one piece over many 16 KiB spans, pieces far apart,
+    and pieces with no gaps, so that neighbours share their edge
+    words."""
+    rng = np.random.default_rng(len(name))
+    if name == "short_pieces_many_windows":
+        lens = rng.integers(1, 40, 20_000)
+        buf_len = 2 * int(lens.sum()) + 30 * len(lens)
+        table = _layer_table(rng, lens, buf_len, gap_hi=10)
+    elif name == "piece_over_many_spans":
+        buf_len = 2_000_003
+        table = _layer_table(rng, [7, 900_001, 33], buf_len, gap_hi=40)
+    elif name == "sparse":
+        buf_len = 8 << 20
+        table = _layer_table(rng, rng.integers(100, 900, 30), buf_len,
+                             src_hi=1 << 20).numpy()
+        table[0] = buf_len // 2 + np.arange(30) * 70_001
+        table = torch.from_numpy(table)
+    else:
+        lens = rng.integers(1, 3000, 500)
+        buf_len = 2 * int(lens.sum())
+        dst = buf_len // 2 + np.cumsum(lens) - lens
+        src = dst - buf_len // 2 + rng.integers(-8, 9, len(lens))
+        src = np.clip(src, 0, buf_len // 2 - lens)
+        table = torch.from_numpy(np.stack([dst, src, lens]).astype(np.int64))
+    base = torch.from_numpy(rng.integers(0, 256, buf_len + 3,
+                                         dtype=np.uint8))
+    _k8b_card_equals_plain(cuda, base, table, 3)
+
+
+def test_k8b_keeps_recycled_bytes(cuda):
+    """K8b in place on memory that held 0xFF (the caching allocator hands
+    the freed block back), sources written below: every byte outside the
+    pieces stays 0xFF, every piece byte is its source's."""
+    rng = np.random.default_rng(79)
+    buf_len = 3 << 20
+    table = _layer_table(rng, rng.integers(1, 5000, 400), buf_len,
+                         gap_hi=300)
+    junk = torch.full((buf_len,), 0xFF, dtype=torch.uint8, device=cuda)
+    ptr = junk.data_ptr()
+    del junk
+    buf = torch.empty(buf_len, dtype=torch.uint8, device=cuda)
+    assert buf.data_ptr() == ptr            # the recycled block
+    src = torch.from_numpy(rng.integers(0, 256, buf_len // 2,
+                                        dtype=np.uint8))
+    buf[:buf_len // 2] = src.to(cuda)
+    host = buf.cpu()
+    RR.layered_pass(buf, table.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(buf.cpu(), RR.layered_pass_reference(host.clone(),
+                                                            table))
+    covered = torch.zeros(buf_len, dtype=torch.bool)
+    for d, s, n in table.T.tolist():
+        covered[d:d + n] = True
+        assert torch.equal(buf[d:d + n].cpu(), src[s:s + n])
+    assert bool((buf.cpu()[buf_len // 2:][~covered[buf_len // 2:]]
+                 == 0xFF).all())
+
+
+def test_k8b_corrupt_and_unordered_tables_stay_inside(cuda):
+    """Corrupt pieces in dst order are skipped whole, as the plain version
+    skips them; a table out of order writes only bytes of its valid
+    pieces, and nothing outside the view."""
+    rng = np.random.default_rng(80)
+    t = np.array([[-5, 6000, 6700, 8000, 9000, 9700, 11_000],
+                  [10, 300, -7, 40, 1 << 40, 50, 20],
+                  [600, 600, 1200, 0, 600, 600, 1 << 40]], np.int64)
+    base = torch.from_numpy(rng.integers(0, 256, 12_000 + 8,
+                                         dtype=np.uint8))
+    _, plain = _k8b_card_equals_plain(cuda, base, torch.from_numpy(t), 8)
+    assert torch.equal(plain[:6000], base[8:6008])   # the corrupt first
+    shuffled = torch.from_numpy(np.ascontiguousarray(t[:, [0, 5, 3, 1]]))
+    whole = base.to(cuda)
+    RR.layered_pass(whole[8:], shuffled.to(cuda))
+    torch.cuda.synchronize()
+    changed = whole.cpu() != base
+    allowed = torch.zeros_like(changed)
+    for d, n in ((6000, 600), (9700, 600)):
+        allowed[8 + d:8 + d + n] = True
+    assert not bool((changed & ~allowed).any())
+
+
+def test_k8b_past_2_gib(cuda):
+    """A buffer of more than 2^31 bytes: pieces on both sides of 2^31 and
+    at its end, their sources below; equal to the plain version run on
+    the card."""
+    rng = np.random.default_rng(32)
+    buf_len = (1 << 31) + 3 * 8192 + 5
+    buf = torch.empty(buf_len, dtype=torch.uint8, device=cuda)
+    buf[:1 << 20] = torch.from_numpy(rng.integers(0, 256, 1 << 20,
+                                                  dtype=np.uint8)).to(cuda)
+    at = [(1 << 31) - 12_000, (1 << 31) - 2000, (1 << 31) - 3,
+          (1 << 31) + 512, buf_len - 2013]
+    lens = [8990, 1400, 515, 17, 2013]
+    srcs = rng.integers(0, (1 << 20) - 9000, len(at)).tolist()
+    table = torch.tensor([at, srcs, lens], dtype=torch.int64, device=cuda)
+    ref = buf.clone()
+    RR.layered_pass(buf, table)
+    RR.layered_pass_reference(ref, table)
+    torch.cuda.synchronize()
+    assert torch.equal(buf, ref)
+    del ref
+    for d, s, n in zip(at, srcs, lens):
+        assert torch.equal(buf[d:d + n], buf[s:s + n])
+
+
 def test_byte_rle_pointer_doubling_on_the_card(cuda):
     kinds = np.array([0, 1, 0, 1], np.uint8)
     lens = np.array([3, 200_000, 5, 40], np.int64)
@@ -840,7 +1024,6 @@ def test_byte_rle_pointer_doubling_on_the_card(cuda):
 def test_k8_wrappers_raise_on_cuda_tensors_they_do_not_take(cuda):
     lit = torch.zeros(64, dtype=torch.uint8, device=cuda)
     frags = torch.tensor([[0], [0], [4]], dtype=torch.int64, device=cuda)
-    lo = torch.tensor([0, 1], dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError):
         RR.ragged_concat(lit, frags.cpu(), 1)
     with pytest.raises(ValueError):
@@ -848,14 +1031,19 @@ def test_k8_wrappers_raise_on_cuda_tensors_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         RR.ragged_concat(lit, frags.to(torch.int32), 1)
     with pytest.raises(TypeError):
-        RR.layered_pass(lit, frags.to(torch.int32), lo)
+        RR.layered_pass(lit, frags.to(torch.int32))
+    with pytest.raises(ValueError):
+        RR.layered_pass(lit, frags.cpu())
+    with pytest.raises(ValueError):
+        RR.layered_pass(lit[::2], frags)
     with pytest.raises(ValueError):
         RR.small_merge(lit, lit[::2], frags)
     with pytest.raises(ValueError):
         RR.small_merge(lit, lit, frags.cpu())
-    before = RR.small_launches
+    before = (RR.small_launches, RR.layered_launches)
     RR.small_merge(lit, lit, frags[:, :0])      # no piece: no launch
-    assert RR.small_launches == before
+    RR.layered_pass(lit, frags[:, :0])
+    assert (RR.small_launches, RR.layered_launches) == before
 
 
 def test_decompress_layered_card_equals_cpu(cuda):

@@ -788,7 +788,7 @@ def test_k8c_wrapper_rejects(what):
 
 
 def test_literal_pass_has_no_device_sync_or_repeat_interleave(monkeypatch):
-    """The path from the piece tables to K8a and K8c: no ``plan_frags``, no
+    """The path from the piece tables to K8a and K8c: no
     ``repeat_interleave`` (whose output size reads the device) and no read
     of a tensor's value on the host; each wrapper is called once with its
     table."""
@@ -806,7 +806,6 @@ def test_literal_pass_has_no_device_sync_or_repeat_interleave(monkeypatch):
         ("k8a", t, nc)) or torch.zeros(nc * CELL, dtype=torch.uint8))
     monkeypatch.setattr(RR, "small_merge", lambda out, lit, t: calls.append(
         ("k8c", t)) or out)
-    monkeypatch.setattr(RR, "plan_frags", banned)
     monkeypatch.setattr(torch, "repeat_interleave", banned)
     for name in ("__bool__", "__int__", "__index__", "item", "tolist",
                  "cpu", "numpy"):

@@ -106,42 +106,6 @@ def test_merge_contiguous_equals_jax():
     assert RR.merge_contiguous(lens, lits)[0].tolist() == [12, 14]
 
 
-@pytest.mark.parametrize("cell_bits", [RR.CELL_BITS, 10])   # 10: 1 KiB cells
-@pytest.mark.parametrize("mode", ["mixed", "tiny", "big"])
-def test_plan_frags_properties(mode, cell_bits):
-    """Fragments lie inside one cell each, ascend by destination, cover
-    the pieces' bytes exactly, and agree with the JAX planner's records."""
-    rng = np.random.default_rng(7)
-    out_len = 50_000
-    lens, srcs = _random_plan(rng, out_len, 70_000, mode)
-    dst = np.cumsum(lens) - lens
-    ncells = -(-out_len >> cell_bits)
-    frags, lo = RR.plan_frags(*(torch.from_numpy(a) for a in
-                                (dst, srcs, lens)), ncells, cell_bits)
-    assert frags.dtype == torch.int64 and lo.dtype == torch.int64
-    assert frags.is_contiguous() and tuple(lo.shape) == (ncells + 1,)
-    touched = RR.touched_ranges(lo).numpy()
-    frags, lo = frags.numpy(), lo.numpy()
-    f_dst, f_src, f_len = frags
-    assert (f_len >= 1).all() and int(f_len.sum()) == out_len
-    assert ((f_dst >> cell_bits) == ((f_dst + f_len - 1) >> cell_bits)).all()
-    assert (np.diff(f_dst) > 0).all()
-    assert lo[0] == 0 and lo[-1] == frags.shape[1]
-    assert (np.diff(lo) >= 0).all()
-    for j in (0, ncells // 2, ncells - 1):
-        assert ((f_dst[lo[j]:lo[j + 1]] >> cell_bits) == j).all()
-    calls = jrr._plan_frags(dst, srcs, lens, ncells, jrr.LEAD_ROWS,
-                            cell_bits)
-    base = np.concatenate([c[2] for c in calls]).astype(np.int64)
-    meta = np.concatenate([c[3] for c in calls]).astype(np.int64)
-    mask = (1 << cell_bits) - 1
-    assert np.array_equal(meta & mask, f_dst & mask)
-    assert np.array_equal((meta >> cell_bits) + 1, f_len)
-    assert np.array_equal(base, f_src - (f_dst & mask) + jrr.LEAD_ROWS * 1024)
-    assert touched[0] == 0 and touched[-1] == frags.shape[1]
-    assert (np.diff(touched) > 0).all()
-
-
 def test_ragged_rejects_sources_outside_the_plane():
     lit = np.zeros(100, np.uint8)
     for lens, srcs in (([50, 60], [0, 50]), ([10], [-1])):
@@ -160,10 +124,9 @@ def _table(rows):
 
 def test_plain_versions_never_leave_their_tensors():
     """A table with sources or destinations outside the tensors: K8a reads
-    0 there, K8b and K8c skip the piece or fragment."""
+    0 there, K8b and K8c skip the piece."""
     lit = torch.arange(1, 101, dtype=torch.uint8)
     pieces = _table([[0, 10, 30], [95, -3, 5], [10, 6, 4]])
-    lo = torch.tensor([0, 3], dtype=torch.int64)
     out = RR.ragged_concat(lit, pieces, 1)
     assert out.shape[0] == RR.CELL
     assert out[:10].tolist() == [96, 97, 98, 99, 100, 0, 0, 0, 0, 0]
@@ -175,8 +138,7 @@ def test_plain_versions_never_leave_their_tensors():
     assert buf[8:12].tolist() == [91, 92, 93, 94]
     assert int(buf.sum()) == 91 + 92 + 93 + 94
     buf2 = torch.arange(64, dtype=torch.uint8)
-    RR.layered_pass(buf2, _table([[32, 60], [0, 0], [8, 8]]),
-                    torch.tensor([0, 2], dtype=torch.int64))
+    RR.layered_pass(buf2, _table([[32, 60], [0, 0], [8, 8]]))
     assert buf2[32:40].tolist() == list(range(8))
     assert buf2[40:].tolist() == list(range(40, 64))
 
@@ -184,25 +146,28 @@ def test_plain_versions_never_leave_their_tensors():
 @pytest.mark.parametrize("what", ["bytes", "table", "ranges", "device"])
 def test_wrappers_reject_wrong_tensors(what):
     lit = torch.zeros(16, dtype=torch.uint8)
-    frags = _table([[0], [0], [4]])
-    lo = torch.tensor([0, 1], dtype=torch.int64)
+    pieces = _table([[0], [0], [4]])
     if what == "bytes":
         lit = lit.to(torch.int32)
     elif what == "table":
-        frags = frags.to(torch.int32)
+        pieces = pieces.to(torch.int32)
     elif what == "ranges":
-        lo = lo.to(torch.int32)
+        # two pieces whose byte ranges overlap: K8a and K8b search their
+        # tables and refuse it; K8c takes any order
+        pieces = _table([[0, 2], [8, 8], [4, 4]])
     else:
-        frags = frags.to("meta")
-    err = ValueError if what == "device" else TypeError
-    # K8a and K8c take no ranges: their counterpart is K8a's cell count
-    with pytest.raises(ValueError if what == "ranges" else err):
-        RR.ragged_concat(lit, frags, 0 if what == "ranges" else 1)
+        pieces = pieces.to("meta")
+    err = {"device": ValueError, "ranges": ValueError}.get(what, TypeError)
     with pytest.raises(err):
-        RR.layered_pass(lit, frags, lo)
-    if what != "ranges":
+        RR.ragged_concat(lit, pieces, 1)
+    with pytest.raises(err):
+        RR.layered_pass(lit, pieces)
+    if what == "ranges":
+        with pytest.raises(ValueError):
+            RR.ragged_concat(lit, _table([[0], [0], [4]]), 0)
+    else:
         with pytest.raises(err):
-            RR.small_merge(torch.zeros(16, dtype=torch.uint8), lit, frags)
+            RR.small_merge(torch.zeros(16, dtype=torch.uint8), lit, pieces)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's K8a (ragged_concat) and K8c (small_merge) of one
-checkout of the repository on a CUDA card, so that two checkouts can be
-compared within one run on one card:
+"""Time the port's K8a (ragged_concat), K8c (small_merge) and K8b
+(layered_pass) of one checkout of the repository on a CUDA card, so that
+two checkouts can be compared within one run on one card:
 
     python3 tools/torch_replay_ab.py ROOT TAG
 
@@ -22,6 +22,15 @@ timed, host clock with a synchronise (median of 7):
 kernels), and ``replay_tokens_device_array`` from the tokens (the
 flattens too) with its parts, each timed inside the same repeated run
 (``chip_smoke.replay_parts``).
+
+Then the same for the layered plan of the 64 MiB pasted-pieces chunk
+(``chip_smoke.pasted_corpus``): ``replay_pieces_layered`` replays it once
+with K8b's calls recorded (a pass each, whatever their signature); each
+pass is checked bit for bit against its plain version and timed (wrapper
+and device, the kernel found by the name ``layered``); the whole
+``replay_pieces_layered`` is timed on the host clock (median of 7) and
+its device operations under ``torch.profiler`` (one call, every kernel,
+copy and memset it runs); ``replay_parts`` splits the decode's replay.
 """
 
 import importlib.util
@@ -53,10 +62,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     _build.build(force=True)
-    kernel = None       # ptxas's report of K8a and K8c
+    kernel = None       # ptxas's report of K8a, K8c and K8b
     for line in _build.build_log.splitlines():
         if "entry function" in line:
-            m = re.search(r"(ragged_kernel|small_kernel)", line)
+            m = re.search(r"(ragged_kernel|small_kernel|layered\w*kernel)",
+                          line)
             kernel = m and m.group(1)
         elif kernel and ("Used" in line or "spill" in line):
             print(f"AB {tag} ptxas {kernel}: "
@@ -169,6 +179,78 @@ def main() -> int:
     parts = smoke.replay_parts((kinds, lengths, dists), lit, reps=7)
     print(f"AB {tag} {smi}: replay_tokens_device_array and its parts "
           f"(chip_smoke.replay_parts, host-clock ms, median of 7): "
+          + "; ".join(f"{k} {v:.3f}" for k, v in parts.items()), flush=True)
+    del lit, flat, k8a_args, k8c_args, mine, plain, got, chunk
+    torch.cuda.empty_cache()
+
+    # the layered plan of the pasted-pieces chunk: K8b
+    corpus = smoke.pasted_corpus(64 << 20)
+    job = matcher.MatchJob(corpus, smoke.STRIDE, torch.device("cuda"))
+    kinds, lengths, dists = split_long_runs(*job.collect())
+    del job
+    ls, le, _ = DP.literal_spans(kinds, lengths)
+    lit = torch.from_numpy(np.concatenate(
+        [corpus[a:b] for a, b in zip(ls, le)])).cuda()
+    lens, d = DP._token_columns(kinds, lengths, dists)[:2]
+    plan = runtime.flatten_replay_layered(kinds, lens, d)
+    assert plan is not None and plan[3] >= 1, "the plan is not layered"
+    out_len = int(lens.sum())
+    passes = []
+    real = RR.layered_pass
+
+    def spy(*args):
+        passes.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                            for a in args))
+        return real(*args)
+
+    RR.layered_pass = spy
+    try:
+        chunk = RR.replay_pieces_layered(*plan, lit, out_len)
+    finally:
+        RR.layered_pass = real
+    want = torch.from_numpy(corpus).cuda()
+    assert torch.equal(chunk, want), "layered replay differs"
+    print(f"AB {tag} {smi}: 64 MiB pasted-pieces chunk, {len(kinds)} "
+          f"tokens, {len(plan[0])} pieces in {plan[3] + 1} layers",
+          flush=True)
+    for i, args in enumerate(passes):
+        mine = args[0].clone()
+        plain = args[0].clone()
+        RR.layered_pass(mine, *args[1:])
+        RR.layered_pass_reference(plain, *args[1:])
+        assert torch.equal(mine, plain), f"K8b differs on pass {i + 1}"
+
+        def k8b():
+            return RR.layered_pass(mine, *args[1:])
+
+        table = args[1]
+        print(f"AB {tag} {smi}: K8b pass {i + 1} ({table.shape[1]} records, "
+              f"{int(table[2].sum())} bytes) wrapper {event_ms(k8b):.4f} ms, "
+              f"kernel on the device {device_ms(k8b, 'layered'):.4f} ms",
+              flush=True)
+        del mine, plain
+
+    def layered():
+        return RR.replay_pieces_layered(*plan, lit, out_len)
+
+    print(f"AB {tag} {smi}: replay_pieces_layered {host_ms(layered, 7):.3f} "
+          f"ms (host clock, synchronised, median of 7)", flush=True)
+    layered()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        layered()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    print(f"AB {tag} {smi}: replay_pieces_layered on the device: "
+          f"{len(ops)} operations, "
+          f"{sum(e.device_time_total for e in ops) / 1e3:.4f} ms in all "
+          f"(torch.profiler, one call): " + ", ".join(
+              f"{e.name[:40]} {e.device_time_total / 1e3:.4f}"
+              for e in ops), flush=True)
+    parts = smoke.replay_parts((kinds, lengths, dists), lit, reps=7)
+    print(f"AB {tag} {smi}: pasted pieces, replay_tokens_device_array and "
+          f"its parts (host-clock ms, median of 7): "
           + "; ".join(f"{k} {v:.3f}" for k, v in parts.items()), flush=True)
     return 0
 
