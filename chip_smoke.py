@@ -28,15 +28,14 @@ Phases, in order; any failure exits nonzero before the last line:
    the 64 MiB long-range chunk and of the 64 MiB pasted-pieces chunk hands
    them (each also with its own device time), and the pasted-pieces
    chunk's whole layered replay (``replay_pieces_layered``, median of 5);
-   K9 (compact_masked) on the run masks of the chunk's dense candidates,
-   with its device time.  Beside each
-   kernel's time stand its bound (see ``bound``) and, where one PyTorch
-   call computes the same function, that call's time and the ratio.  K2,
-   K10, K3 and K6 also run under ``torch.profiler``: at most one kernel
-   and one memset a call, and the kernel's own device time (K2 and K10 also
-   on an all-clear mask and on one tile, ``one_pass_floors``); K1's device
-   time too.  Every row whose device time the profiler measured carries
-   it as ``dev_ms``;
+   K9 (compact_masked) on the run masks of the chunk's dense candidates.
+   Beside each kernel's time stand its bound (see ``bound``) and, where
+   one PyTorch call computes the same function, that call's time and the
+   ratio.  K2, K9, K10, K3 and K6 also run under ``torch.profiler``: at
+   most one kernel and one memset a call, and the kernel's own device time
+   (K2, K9 and K10 also on an all-clear mask and on one tile,
+   ``one_pass_floors``); K1's device time too.  Every row whose device
+   time the profiler measured carries it as ``dev_ms``;
 4. the slice: ``lrzip_next_tpu_torch.compress`` of the 64 MiB long-range
    corpus with ``method="rans"`` (the matcher's K1 and K10, twice a
    chunk for the chain starts and ends, and the device literal encode:
@@ -358,7 +357,7 @@ def one_pass_device(fn, label: str, reps: int = 5,
                     kernel: str = "compact_kernel") -> float:
     """``fn`` calls a one-pass compaction's wrapper once (K2 or K10:
     ``compact_kernel``; K3: ``pack_bytes_kernel``; K6:
-    ``pack_plane_kernel``).  Under
+    ``pack_plane_kernel``; K9: ``compact_masked_kernel``).  Under
     ``torch.profiler``, the calls must run at most one ``kernel`` and at
     most one memset each on the device and nothing else (the profiler may
     miss a call of a few microseconds, so fewer count too); returns the
@@ -378,15 +377,18 @@ def one_pass_device(fn, label: str, reps: int = 5,
     return ms
 
 
-def one_pass_floors(call, m: int, label: str) -> dict:
-    """Device ms of a K2 or K10 wrapper without its payload traffic:
+def one_pass_floors(call, m: int, label: str, kernel: str = "compact_kernel",
+                    tile: int = 8192) -> dict:
+    """Device ms of a K2, K9 or K10 wrapper without its payload traffic:
     ``call(mask)`` on an all-clear mask of the same m flags (the flag loads
-    and the look-back, nothing to scatter) and on one tile's 8192 flags
-    (the launch and one block)."""
+    and the look-back, nothing to scatter) and on one tile's ``tile``
+    flags (the launch and one block); ``kernel`` as for
+    ``one_pass_device``."""
     res = {}
-    for key, n in (("device_ms_all_clear", m), ("device_ms_one_tile", 8192)):
+    for key, n in (("device_ms_all_clear", m), ("device_ms_one_tile", tile)):
         mask = torch.zeros(n, dtype=torch.bool, device="cuda")
-        res[key] = one_pass_device(lambda: call(mask), f"{label}, {key}")
+        res[key] = one_pass_device(lambda: call(mask), f"{label}, {key}",
+                                   kernel=kernel)
     return res
 
 
@@ -498,23 +500,18 @@ def check_k9(data: np.ndarray, label: str) -> dict:
         lambda: compact_masked_reference(start, is_end, idx, cand), same,
         bnd, library, "torch.nonzero twice + 3 gathers")
     res.pop("out")
-    # device time: K9's two kernels, and every device operation of the
-    # wrapper (the kernels, the scan of the block counts between them and
-    # the count's conversion)
-    ops_seen = profiled_cuda_events(
-        lambda: compact_masked(start, is_end, idx, cand), f"K9 {label}")
-    kernels = [e for e in ops_seen if "masked_" in e.name]
-    require(kernels, f"K9 {label}: the profiler saw no K9 kernel")
-    calls = max(sum("masked_scatter" in e.name for e in kernels), 1)
-    res["device_ms"] = sum(e.device_time_total for e in kernels) / 1e3 / \
-        calls
-    res["device_ms_all_ops"] = sum(e.device_time_total
-                                   for e in ops_seen) / 1e3 / calls
-    log(f"  K9 {label}: its two kernels {res['device_ms']:.4f} ms a call on "
-        f"the device, all its device operations "
-        f"{res['device_ms_all_ops']:.4f} ms (torch.profiler, {calls} calls "
-        f"seen); bound {bnd['bound_ms']:.4f} ms ({sectors} payload sectors "
-        f"at set flags), every payload byte "
+    # device time: one kernel and at most one memset a call, nothing else
+    k9 = "compact_masked_kernel"
+    res["device_ms"] = one_pass_device(
+        lambda: compact_masked(start, is_end, idx, cand), f"K9 {label}",
+        kernel=k9)
+    clear_end = torch.zeros(m, dtype=torch.bool, device="cuda")
+    res.update(one_pass_floors(
+        lambda f: compact_masked(f, clear_end[:f.shape[0]], idx[:f.shape[0]],
+                                 cand[:f.shape[0]]),
+        m, f"K9 {label}", kernel=k9, tile=32768))   # compact_masked.cu kTile
+    log(f"  K9 {label}: bound {bnd['bound_ms']:.4f} ms ({sectors} payload "
+        f"sectors at set flags), every payload byte "
         f"{bnd['bound_ms_all_payload']:.4f} ms; bound / device "
         f"{bnd['bound_ms'] / res['device_ms']:.4f}")
     return res

@@ -37,10 +37,9 @@ _SIGNATURES = {
                       _vp, _vp],
     "lrzt_compact2": [_vp, _vp, _vp, _i64, _vp, _i64, _vp, _vp, _vp, _vp],
     "lrzt_compact_slots": [_i64],
-    "lrzt_compact_masked_count": [_vp, _vp, _i64, _vp, _vp],
-    "lrzt_compact_masked_scatter": [_vp, _vp, _vp, _vp, _i64, _vp, _vp, _vp,
-                                    _vp, _vp],
-    "lrzt_compact_masked_tile": [],
+    "lrzt_compact_masked": [_vp, _vp, _vp, _vp, _i64, _vp, _i64, _vp, _vp,
+                            _vp, _vp, _vp],
+    "lrzt_compact_masked_slots": [_i64],
     "lrzt_pack_bytes": [_vp, _vp, _i64, _vp, _i64, _vp, _i64, _vp, _vp],
     "lrzt_pack_bytes_slots": [_i64],
     "lrzt_pack_plane": [_vp, _i64, _vp, _i64, _vp, _i64, _vp, _vp],

@@ -27,14 +27,16 @@ ends, srcs, n)``: ``pos`` at the set ``start`` flags, ``pos`` at the set
 ``is_end`` flags and ``cand`` at the set ``start`` flags, each in index
 order, and the count of starts.  The masks are the caller's: for the run
 masks of the dense matcher the k-th start pairs with the k-th end.  A
-CUDA tensor runs ``csrc/compact_masked.cu`` (count pass, ``torch.cumsum``
-over the block counts, scatter pass); counterpart of
-``compact_masked_pallas``.
+CUDA tensor runs ``csrc/compact_masked.cu``: one launch after one
+``cudaMemsetAsync`` of its workspace, as for K2, whose look-back carries
+the two masks' counts in one descriptor a tile and whose last tile writes
+the count; counterpart of ``compact_masked_pallas``.
 
 In all three, output slots from the count on are unspecified, a CUDA
 tensor launches the kernel or raises, and only a CPU tensor runs the
-plain version (``*_reference``).  K2 and K10 take fewer than 2**31
-flags, and a contiguous slice that starts at any byte.
+plain version (``*_reference``).  All three take fewer than 2**31 flags,
+and masks that are contiguous slices starting at any byte (K9's two at
+different bytes).
 """
 
 from __future__ import annotations
@@ -110,7 +112,8 @@ def compact_starts3(start: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     _check("compact_starts3", (start,), (a, b, c))
     if start.device.type == "cpu":
         return compact_starts3_reference(start, a, b, c)
-    outs, n = _one_pass(start, (a, b, c), "lrzt_compact3")
+    outs, n = _one_pass((start,), (a, b, c), 3, "lrzt_compact3",
+                        "lrzt_compact_slots")
     if start.shape[0]:
         launches += 1
     return (*outs, n)
@@ -123,44 +126,11 @@ def compact_starts(start: torch.Tensor, pos: torch.Tensor,
     _check("compact_starts", (start,), (pos, cand))
     if start.device.type == "cpu":
         return compact_starts_reference(start, pos, cand)
-    outs, n = _one_pass(start, (pos, cand), "lrzt_compact2")
+    outs, n = _one_pass((start,), (pos, cand), 2, "lrzt_compact2",
+                        "lrzt_compact_slots")
     if start.shape[0]:
         starts_launches += 1
     return (*outs, n)
-
-
-def _count(n, device) -> torch.Tensor:
-    """The 0-dim int32 count; ``n`` is None for an empty input."""
-    if n is None:
-        return torch.zeros((), dtype=torch.int32, device=device)
-    return n.to(torch.int32)
-
-
-def _one_pass(start: torch.Tensor, payloads, entry: str):
-    """The one-pass kernel ``entry`` of ``csrc/compact3.cu`` on CUDA
-    tensors: the k-sized outputs and the 0-dim int32 count (nothing
-    launched for k = 0).  Each output, the count and the workspace are
-    allocations of their own: on the host an allocation costs less than a
-    view of a shared one."""
-    dev = start.device
-    k = start.shape[0]
-    if k >= 1 << 31:
-        raise ValueError(f"{entry}: {k} flags; the kernel takes fewer than "
-                         "2**31")
-    outs = [torch.empty(k, dtype=torch.int32, device=dev) for _ in payloads]
-    if k == 0:
-        return outs, _count(None, dev)
-    lib = _build.library()
-    # freed on return, maybe before the kernel ends: the caching allocator
-    # hands the block only to work queued after it on this stream
-    ws = torch.empty(lib.lrzt_compact_slots(k), dtype=torch.int64,
-                     device=dev)
-    n = torch.empty((), dtype=torch.int32, device=dev)
-    _build.check(getattr(lib, entry)(
-        start.data_ptr(), *(x.data_ptr() for x in payloads), k,
-        ws.data_ptr(), ws.shape[0], *(o.data_ptr() for o in outs),
-        n.data_ptr(), _build.stream_ptr(dev)), entry)
-    return outs, n
 
 
 def compact_masked(start: torch.Tensor, is_end: torch.Tensor,
@@ -170,23 +140,36 @@ def compact_masked(start: torch.Tensor, is_end: torch.Tensor,
     _check("compact_masked", (start, is_end), (pos, cand))
     if start.device.type == "cpu":
         return compact_masked_reference(start, is_end, pos, cand)
-    dev = start.device
-    m = start.shape[0]
-    outs = [torch.empty(m, dtype=torch.int32, device=dev) for _ in range(3)]
-    if m == 0:
-        return (*outs, _count(None, dev))
+    outs, n = _one_pass((start, is_end), (pos, cand), 3,
+                        "lrzt_compact_masked", "lrzt_compact_masked_slots")
+    if start.shape[0]:
+        masked_launches += 1
+    return (*outs, n)
+
+
+def _one_pass(masks, payloads, n_outs: int, entry: str, slots: str):
+    """The one-pass kernel ``entry`` (``csrc/compact3.cu``,
+    ``csrc/compact_masked.cu``) on CUDA tensors: ``n_outs`` k-sized int32
+    outputs and the 0-dim int32 count (nothing launched for k = 0).  Each
+    output, the count and the workspace (``slots`` of the C library gives
+    its size) are allocations of their own: on the host an allocation
+    costs less than a view of a shared one."""
+    dev = masks[0].device
+    k = masks[0].shape[0]
+    if k >= 1 << 31:
+        raise ValueError(f"{entry}: {k} flags; the kernel takes fewer than "
+                         "2**31")
+    outs = [torch.empty(k, dtype=torch.int32, device=dev)
+            for _ in range(n_outs)]
+    if k == 0:
+        return outs, torch.zeros((), dtype=torch.int32, device=dev)
     lib = _build.library()
-    blocks = -(-m // lib.lrzt_compact_masked_tile())
-    counts = torch.empty((2, blocks), dtype=torch.int32, device=dev)
-    stream = _build.stream_ptr(dev)
-    _build.check(lib.lrzt_compact_masked_count(
-        start.data_ptr(), is_end.data_ptr(), m, counts.data_ptr(), stream),
-        "compact_masked count")
-    incl = torch.cumsum(counts, 1, dtype=torch.int64)
-    offsets = (incl - counts).contiguous()
-    _build.check(lib.lrzt_compact_masked_scatter(
-        start.data_ptr(), is_end.data_ptr(), pos.data_ptr(),
-        cand.data_ptr(), m, offsets.data_ptr(),
-        *(o.data_ptr() for o in outs), stream), "compact_masked scatter")
-    masked_launches += 1
-    return (*outs, _count(incl[0, -1], dev))
+    # freed on return, maybe before the kernel ends: the caching allocator
+    # hands the block only to work queued after it on this stream
+    ws = torch.empty(getattr(lib, slots)(k), dtype=torch.int64, device=dev)
+    n = torch.empty((), dtype=torch.int32, device=dev)
+    _build.check(getattr(lib, entry)(
+        *(x.data_ptr() for x in (*masks, *payloads)), k, ws.data_ptr(),
+        ws.shape[0], *(o.data_ptr() for o in outs), n.data_ptr(),
+        _build.stream_ptr(dev)), entry)
+    return outs, n

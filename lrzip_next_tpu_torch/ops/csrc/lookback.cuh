@@ -1,5 +1,6 @@
 // The decoupled look-back shared by the one-pass compactions: K2 and K10
-// (compact3.cu) and K3 (streampack.cu).
+// (compact3.cu), K3 and K6 (streampack.cu), and K9 (compact_masked.cu),
+// which carries two counts a tile (look_back_pair).
 //
 // A one-pass compaction cuts its input into tiles, one block a tile, and
 // each block finds its tile's output offset itself (Merrill and Garland's
@@ -123,18 +124,81 @@ __device__ inline int look_back(unsigned long long* desc, int tile, int agg) {
 
 // Warp 0, lanes < kWarps hold their warp's count in `v`: the exclusive
 // offsets of the warps in the tile go to s_warp, the tile's aggregate is
-// returned in every lane.
-template <int kWarps>
-__device__ __forceinline__ int warp_offsets(int v, int* s_warp) {
+// returned in every lane.  T is int, or unsigned for K9's two counts
+// packed in one word (the high one may reach bit 31).
+template <int kWarps, class T>
+__device__ __forceinline__ T warp_offsets(T v, T* s_warp) {
   const int lane = threadIdx.x & 31;
-  int incl = v;
+  T incl = v;
 #pragma unroll
   for (int o = 1; o < kWarps; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, incl, o);
+    const T y = __shfl_up_sync(kFull, incl, o);
     if (lane >= o) incl += y;
   }
   if (lane < kWarps) s_warp[lane] = incl - v;
   return __shfl_sync(kFull, incl, kWarps - 1);
+}
+
+// Two counts a tile (K9: the set flags of two masks) in one descriptor,
+// written by one aligned 64-bit store as the one-count descriptor is:
+// status in the top 2 bits (0 unset, 1 aggregate, 2 inclusive prefix), the
+// second count in bits 31-61, the first in bits 0-30.  So no reader sees
+// a status with a stale count of either kind, and with fewer than 2^31
+// elements two values add field by field without a carry: each field's
+// sum is at most the element count.
+constexpr int kPairShift = 31;
+constexpr unsigned long long kPairCount = (1ull << kPairShift) - 1;
+constexpr unsigned long long kPairValue = (1ull << 62) - 1;
+constexpr unsigned long long kPairAggregate = 1ull << 62;
+constexpr unsigned long long kPairPrefix = 2ull << 62;
+
+__device__ __forceinline__ unsigned long long pair(int first, int second) {
+  return (unsigned long long)unsigned(first) |
+         (unsigned long long)unsigned(second) << kPairShift;
+}
+
+__device__ __forceinline__ unsigned long long warp_sum_pair(
+    unsigned long long v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// look_back with a pair of counts a tile: warp 0 publishes the tile's
+// aggregate `agg` (a pair), sums its predecessors' values back to the
+// nearest inclusive prefix, publishes its own and returns the exclusive
+// pair.  Traps as look_back does.
+__device__ inline unsigned long long look_back_pair(unsigned long long* desc,
+                                                    int tile,
+                                                    unsigned long long agg) {
+  const int lane = threadIdx.x & 31;
+  if (tile == 0) {
+    if (lane == 0) publish(desc, kPairPrefix | agg);
+    return 0;
+  }
+  if (lane == 0) publish(desc + tile, kPairAggregate | agg);
+  unsigned long long excl = 0;
+  for (int pred = tile - 1;; pred -= 32) {
+    const int j = pred - lane;   // lane 0 the nearest predecessor
+    unsigned long long d = kPairPrefix;  // before tile 0: a prefix of 0
+    for (unsigned polls = 0;; ++polls) {
+      if (j >= 0)
+        d = *reinterpret_cast<volatile unsigned long long*>(desc + j);
+      if (!__any_sync(kFull, (d >> 62) == 0)) break;
+      if (polls == (1u << 24)) __trap();
+      __nanosleep(64);
+    }
+    const unsigned prefixes = __ballot_sync(kFull, (d >> 62) == 2);
+    const unsigned long long v = d & kPairValue;
+    if (prefixes) {
+      const int first = __ffs(prefixes) - 1;
+      excl += warp_sum_pair(lane <= first ? v : 0ull);
+      break;
+    }
+    excl += warp_sum_pair(v);
+  }
+  if (lane == 0) publish(desc + tile, kPairPrefix | (excl + agg));
+  return excl;
 }
 
 // Spin until tile `tile`'s descriptor holds an inclusive prefix; returns

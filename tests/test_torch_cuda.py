@@ -7,6 +7,9 @@ False.  This file imports neither JAX nor the JAX package, but
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1064,7 +1067,13 @@ def test_decompress_layered_card_equals_cpu(cuda):
 
 # --- K9 and K10: the masked compactions -------------------------------------
 
-_TILE = 4_096    # elements a block of compact3.cu / compact_masked.cu takes
+def _source_constant(src: str, name: str) -> int:
+    """A ``constexpr int`` of one of the port's CUDA sources."""
+    text = (Path(C.__file__).resolve().parent / "csrc" / src).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+_TILE = _source_constant("compact_masked.cu", "kTile")   # elements a K9 tile
 
 
 def _masks(kind: str, k: int, rng):
@@ -1145,6 +1154,103 @@ def test_k9_k10_wrappers_raise_on_cuda_tensors_they_do_not_take(cuda):
     assert (C.masked_launches, C.starts_launches) == before
     empty = C.compact_masked(flag[:0], flag[:0], x[:0], x[:0])
     assert int(empty[3]) == 0 and C.masked_launches == before[0]
+
+
+def _k9_inputs(kind: str, k: int, seed: int, cuda, heads=(0, 0)):
+    """(start, is_end, pos, cand) on the card; each mask a slice starting
+    at its own byte (``heads``) of a larger buffer, the payloads int32."""
+    rng = np.random.default_rng(seed)
+    start, is_end = _masks(kind, k, rng)
+    masks = []
+    for mask, h in zip((start, is_end), heads):
+        buf = torch.zeros(k + 32, dtype=torch.bool, device=cuda)
+        at = h - buf.data_ptr() % 16 + 16
+        buf[at:at + k] = torch.from_numpy(mask).to(cuda)
+        masks.append(buf[at:at + k])
+        assert masks[-1].data_ptr() % 16 == h
+    pos, cand = (torch.from_numpy(rng.integers(-2**31, 2**31, k,
+                                               dtype=np.int64)
+                                  .astype(np.int32)).to(cuda)
+                 for _ in range(2))
+    return (*masks, pos, cand)
+
+
+def _assert_k9_equal(out, args):
+    ref = C.compact_masked_reference(*args)
+    n, n_end = int(args[0].sum()), int(args[1].sum())
+    assert out[3].is_cuda and out[3].dim() == 0 \
+        and out[3].dtype == torch.int32 and int(out[3]) == int(ref[3]) == n
+    assert all(x.shape == args[2].shape for x in out[:3])
+    assert torch.equal(out[0][:n], ref[0][:n])
+    assert torch.equal(out[1][:n_end], ref[1][:n_end])
+    assert torch.equal(out[2][:n], ref[2][:n])
+
+
+@pytest.mark.parametrize("kind", ["none", "all", "only_starts",
+                                  "ends_without_starts_in_a_block", "runs",
+                                  "half"])
+def test_k9_over_more_than_32_tiles(cuda, kind):
+    """40 tiles and a ragged tail: the look-back of most tiles reads more
+    than one round of 32 predecessors."""
+    args = _k9_inputs(kind, 40 * _TILE + 123, 40, cuda)
+    before = C.masked_launches
+    out = C.compact_masked(*args)
+    torch.cuda.synchronize()
+    assert C.masked_launches == before + 1
+    _assert_k9_equal(out, args)
+
+
+@pytest.mark.parametrize("heads", [(0, h) for h in range(1, 16)] +
+                         [(h, 0) for h in (1, 7, 15)] +
+                         [(3, 5), (5, 3), (9, 9), (15, 1), (1, 15)])
+@pytest.mark.parametrize("kind", ["runs", "half"])
+def test_k9_masks_at_different_heads(cuda, kind, heads):
+    """start and is_end as slices at their own bytes mod 16 (such as
+    is_end[3:]): the tiles are cut at start's 16-byte boundaries, is_end's
+    vectors come from two aligned loads each."""
+    args = _k9_inputs(kind, 3 * _TILE + 777, sum(heads), cuda, heads)
+    out = C.compact_masked(*args)
+    torch.cuda.synchronize()
+    _assert_k9_equal(out, args)
+
+
+def test_k9_on_recycled_memory(cuda):
+    """Outputs and workspace in blocks that held 0xFF (the caching
+    allocator hands the freed blocks back): the first n slots of each
+    stream and the count are right all the same."""
+    k = 5 * _TILE + 31
+    args = _k9_inputs("runs", k, 9, cuda)
+    torch.cuda.synchronize()
+    junk = [torch.full((k,), -1, dtype=torch.int32, device=cuda)
+            for _ in range(3)]
+    junk.append(torch.full((k // 8,), -1, dtype=torch.int64, device=cuda))
+    junk.append(torch.full((), -1, dtype=torch.int32, device=cuda))
+    ptrs = {x.data_ptr() for x in junk}
+    del junk
+    out = C.compact_masked(*args)
+    torch.cuda.synchronize()
+    assert out[0].data_ptr() in ptrs        # a recycled block
+    _assert_k9_equal(out, args)
+
+
+def test_k9_is_one_kernel_and_at_most_one_memset(cuda):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    args = _k9_inputs("runs", 4 * _TILE + 3, 5, cuda)
+    C.compact_masked(*args)                 # built and loaded before
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            C.compact_masked(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    kernels = [n for n in names if "compact_masked_kernel" in n]
+    memsets = [n for n in names if "memset" in n.lower()]
+    assert len(kernels) == 3, names
+    assert len(memsets) <= 3 and len(kernels) + len(memsets) == len(names), \
+        names
 
 
 def test_dense_functions_card_equal_cpu(cuda):
@@ -1318,12 +1424,14 @@ def test_one_pass_wrappers_raise_from_2_to_the_31_flags(cuda):
     k = 1 << 31
     flags = torch.empty(k, dtype=torch.bool, device=cuda)
     x = torch.empty(k, dtype=torch.int32, device=cuda)
-    before = (C.launches, C.starts_launches)
+    before = (C.launches, C.starts_launches, C.masked_launches)
     with pytest.raises(ValueError, match="2\\*\\*31"):
         C.compact_starts(flags, x, x)
     with pytest.raises(ValueError, match="2\\*\\*31"):
         C.compact_starts3(flags, x, x, x)
-    assert (C.launches, C.starts_launches) == before
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        C.compact_masked(flags, flags, x, x)
+    assert (C.launches, C.starts_launches, C.masked_launches) == before
     del flags, x
     torch.cuda.empty_cache()
 
