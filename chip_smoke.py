@@ -70,14 +70,25 @@ Phases, in order; any failure exits nonzero before the last line:
    gated); ``-U`` (gzip) over four 32 MiB windows of its first 128 MiB
    (K1 four times, K10 eight, no K3-K6), round trip; and ``--no-tpu -g``
    on a 16 MiB word soup (the host matcher: no launch), round trip;
-6. card equals CPU: an 8 MiB mixed input (gzip), a 4 MiB skewed input
+6. mesh: the multi-device path (``parallel/``) on this card, on the same
+   256 MiB corpus: ``use_mesh=True`` with one card writes the
+   ``use_mesh=False`` archive and makes no mesh batch; four 64 MiB rans
+   chunks through a mesh of two dp rows on cuda:0 (two batches, K1 four
+   times, K10 eight, K3-K6 four each) write the single-device archive,
+   which decodes on the card, with the seconds per 64 MiB beside the
+   lookahead's (median of 3, in turns) and the peak device memory; the
+   same dense on two 64 MiB chunks (K9 twice); ``dryrun_multichip`` on 2
+   and 4 mesh entries; two processes joined by ``init_distributed`` over
+   127.0.0.1 (gloo), a 64 MiB chunk each, whose archive equals one
+   process's and decodes;
+7. card equals CPU: an 8 MiB mixed input (gzip), a 4 MiB skewed input
    whose literals make one rANS block of 4096 lanes (rans), a 4 MiB
    pasted-pieces input (rans, layered replay), a 4 MiB dense
    (``anchor_stride=1``) rans archive, 4 MiB of the mixed corpus in 1
    MiB chunks (rans) and in 1 MiB ``-U`` windows (gzip), each compressed
    with device="cuda" and with device="cpu", give the same archive
    bytes, and each device decodes the other's archive;
-7. corrupt payloads on the card: a flipped word and a word count cut
+8. corrupt payloads on the card: a flipped word and a word count cut
    short must raise ``ValueError`` from the literal decode, and a flipped
    byte in an archive's literal block from ``decompress``.
 
@@ -1496,7 +1507,7 @@ def standalone_tokens(chunk: np.ndarray):
             return done
 
     pool, stream = matcher._worker_pool, matcher._job_stream
-    matcher._worker_pool = lambda: Inline
+    matcher._worker_pool = lambda _dev: Inline
     matcher._job_stream = torch.cuda.default_stream
     try:
         return matcher.MatchJob(chunk, STRIDE, torch.device("cuda"),
@@ -1640,6 +1651,202 @@ def phase_multichunk(big: np.ndarray, soup: bytes) -> None:
         f"{s_arc.stat().st_size} bytes, compress {c_secs:.3f} s, "
         f"decompress {d_secs:.3f} s, no kernel launched")
     for p in (s_src, s_arc, s_back):
+        p.unlink()
+
+
+_DIST_WORKER = r"""
+import sys
+sys.path.insert(0, sys.argv[2])
+import numpy as np
+import torch.distributed as dist
+import lrzip_next_tpu_torch as lrzt
+from lrzip_next_tpu_torch.parallel import distributed
+rank = int(sys.argv[1])
+assert distributed.init_distributed(sys.argv[3], 2, rank) == 2
+data = np.fromfile(sys.argv[4], dtype=np.uint8)
+s = lrzt.Settings(method="gzip", max_chunk=64 << 20)
+if rank == 0:
+    with open(sys.argv[5], "wb") as fh:
+        assert distributed.compress_distributed(
+            data, fh, s, n_hosts=2, host=0, device="cuda:0") > 0
+else:
+    assert distributed.compress_distributed(
+        data, None, s, n_hosts=2, host=1, device="cuda:0") is None
+dist.destroy_process_group()
+print("rank", rank, "done")
+"""
+
+
+def mesh_compress(raw: bytes, mesh, **settings_kw) -> tuple:
+    """``compress`` on the card with ``use_mesh=True`` and ``mesh`` pinned
+    as the compress path's mesh (None: the card's own choice); returns
+    (archive, host-clock seconds, mesh batches made)."""
+    import lrzip_next_tpu_torch as lrzt
+    from lrzip_next_tpu_torch.parallel import mesh as M
+    settings = lrzt.Settings(use_mesh=True, **settings_kw)
+    orig, before = M.pipeline_mesh, M.batches
+    if mesh is not None:
+        M.pipeline_mesh = lambda *_: mesh
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        archive = lrzt.compress(raw, settings, device="cuda")
+        secs = time.perf_counter() - t0
+    finally:
+        M.pipeline_mesh = orig
+    return archive, secs, M.batches - before
+
+
+def phase_mesh(big: np.ndarray) -> None:
+    """The multi-device path on this card: (a) ``use_mesh=True`` with one
+    card writes the ``use_mesh=False`` archive and makes no mesh batch;
+    (b) the 256 MiB long-range corpus in four 64 MiB rans chunks through
+    a mesh of two dp rows on cuda:0 (two batches; K1 4, K10 8, K3-K6 4
+    each), the single-device archive byte for byte, decoded on the card,
+    its seconds per 64 MiB beside the lookahead's (median of 3, in turns)
+    and its peak device memory; (c) the same, dense, on two 64 MiB chunks
+    (K9 2); (d) ``dryrun_multichip`` on 2 and 4 mesh entries of cuda:0;
+    (e) two processes joined by ``init_distributed`` over 127.0.0.1, a
+    64 MiB chunk each, whose archive equals one process's."""
+    import lrzip_next_tpu_torch as lrzt
+    from lrzip_next_tpu_torch.parallel import distributed, dryrun
+    from lrzip_next_tpu_torch.parallel import mesh as M
+    raw = big.tobytes()
+    kw = {"method": "rans", "max_chunk": 64 * MIB}
+
+    # (a) the repaired fault: use_mesh=True and the card's own choice
+    single = lrzt.compress(raw, lrzt.Settings(use_mesh=False, **kw),
+                           device="cuda")
+    auto, _, n_auto = mesh_compress(raw, None, **kw)
+    require(auto == single, "use_mesh=True differs from use_mesh=False")
+    cards = torch.cuda.device_count()
+    require(n_auto == 0 if cards < 2 else n_auto > 0,
+            f"use_mesh=True on {cards} card(s) made {n_auto} mesh batches")
+    log(f"mesh (a): use_mesh=True on {cards} card(s) writes the "
+        f"use_mesh=False archive ({len(single)} bytes), {n_auto} mesh "
+        f"batches")
+
+    # (b) two dp rows on one card, four 64 MiB chunks
+    mesh = M.make_mesh(devices=["cuda:0"] * 2)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    archive, cold, n_b = mesh_compress(raw, mesh, **kw)
+    enc = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    require(archive == single,
+            "the mesh archive differs from the single-device one")
+    require(n_b == 2, f"four chunks on two dp rows made {n_b} batches")
+    require(enc["k1"] == 4 and enc["k10"] == 8
+            and all(enc[k] == 4 for k in LITERAL_KERNELS) and enc["k2"] == 0
+            and not any(enc[k] for k in DECODE_KERNELS + DENSE_KERNELS),
+            f"the mesh compress launched {enc}, not K1 4, K10 8, K3-K6 4")
+    t0 = time.perf_counter()
+    require(lrzt.decompress(archive, device="cuda") == raw,
+            "the mesh archive does not decode to the input")
+    d_secs = time.perf_counter() - t0
+    log(f"mesh (b): 256 MiB rans in four 64 MiB chunks on {mesh} of "
+        f"cuda:0: {len(archive)} bytes, equal to the single-device "
+        f"archive, {cold:.3f} s cold, batches {n_b}, launches {enc}, peak "
+        f"device memory {peak} bytes, decoded on the card in "
+        f"{d_secs:.3f} s")
+    runs = {"mesh": [], "single": []}
+    for order in (("mesh", "single"), ("single", "mesh"),
+                  ("mesh", "single")):
+        for which in order:
+            if which == "mesh":
+                secs = mesh_compress(raw, mesh, **kw)[1]
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lrzt.compress(raw, lrzt.Settings(use_mesh=False, **kw),
+                              device="cuda")
+                secs = time.perf_counter() - t0
+            runs[which].append(secs * 64 * MIB / len(raw))
+    med = {k: statistics.median(v) for k, v in runs.items()}
+    log(f"mesh (b): seconds per 64 MiB, mesh of two rows "
+        f"{', '.join(f'{r:.4f}' for r in runs['mesh'])} (median "
+        f"{med['mesh']:.4f}); single-device lookahead "
+        f"{', '.join(f'{r:.4f}' for r in runs['single'])} (median "
+        f"{med['single']:.4f}); reported, not gated")
+    del archive, auto, single
+
+    # (c) dense, two 64 MiB chunks
+    half = raw[:128 * MIB]
+    dense = {"method": "rans", "max_chunk": 64 * MIB, "anchor_stride": 1}
+    single = lrzt.compress(half, lrzt.Settings(use_mesh=False, **dense),
+                           device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    archive, secs, n_b = mesh_compress(half, mesh, **dense)
+    enc = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    require(archive == single,
+            "the dense mesh archive differs from the single-device one")
+    require(n_b == 1, f"two dense chunks on two dp rows made {n_b} batches")
+    require(enc["k9"] == 2 and all(enc[k] == 2 for k in LITERAL_KERNELS)
+            and not any(enc[k] for k in ("k1", "k2", "k10")
+                        + DECODE_KERNELS),
+            f"the dense mesh compress launched {enc}, not K9 2, K3-K6 2")
+    require(lrzt.decompress(archive, device="cuda") == half,
+            "the dense mesh archive does not decode to the input")
+    log(f"mesh (c): 128 MiB dense rans in two 64 MiB chunks on {mesh}: "
+        f"{len(archive)} bytes, equal to the single-device archive, "
+        f"{secs:.3f} s, batches {n_b}, launches {enc}, peak device memory "
+        f"{peak} bytes, decodes")
+    del archive, single
+
+    # (d) the dry run
+    for n in (2, 4):
+        t0 = time.perf_counter()
+        dryrun.dryrun_multichip(n, device="cuda")
+        log(f"mesh (d): dryrun_multichip({n}, device='cuda') passed in "
+            f"{time.perf_counter() - t0:.3f} s")
+
+    # (e) two processes, a 64 MiB chunk each
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    src, out = work / "dist.bin", work / "dist.lrz"
+    big[:128 * MIB].tofile(src)
+    s = lrzt.Settings(method="gzip", max_chunk=64 * MIB)
+    one = io.BytesIO()
+    t0 = time.perf_counter()
+    distributed.compress_distributed(np.frombuffer(half, np.uint8), one, s,
+                                     device="cuda")
+    one_secs = time.perf_counter() - t0
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sock.getsockname()[1]}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _DIST_WORKER, str(rank), str(ROOT), coord,
+         str(src), str(out)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        raise SystemExit("chip_smoke: FAILED: a distributed worker timed "
+                         "out after 240 s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0,
+                f"distributed rank {rank} exited {p.returncode}: "
+                f"{text[-2000:]}")
+    two_secs = time.perf_counter() - t0
+    archive = out.read_bytes()
+    require(archive == one.getvalue(),
+            "the two-process archive differs from the one-process one")
+    require(lrzt.decompress(archive, device="cuda") == half,
+            "the two-process archive does not decode to the input")
+    log(f"mesh (e): two processes over init_distributed ({coord}, gloo), "
+        f"128 MiB gzip in two 64 MiB chunks: {len(archive)} bytes, equal "
+        f"to one process's ({one_secs:.3f} s) and decoded; "
+        f"{two_secs:.3f} s with both processes' start-up")
+    for p in (src, out):
         p.unlink()
 
 
@@ -1809,8 +2016,10 @@ def main() -> int:
     launches = phase_slice(corpus64, pasted64)
     del corpus64, pasted64
     torch.cuda.empty_cache()
-    phase_multichunk(long_range_corpus(256 * MIB),
-                     word_soup_with_holes(16 * MIB).tobytes())
+    big = long_range_corpus(256 * MIB)
+    phase_multichunk(big, word_soup_with_holes(16 * MIB).tobytes())
+    phase_mesh(big)
+    del big
     phase_corrupt(phase_card_equals_cpu())
     log(f"all phases passed in {time.perf_counter() - t0:.3f} s")
 

@@ -18,9 +18,14 @@ equal to that package's device path.  ``-U`` over several chunks
 (``_compress_unlimited``) matches each window on the device, two queued
 ahead, and writes one whole-file chunk whose literals take the host
 codecs.  ``device=None`` takes the host matcher instead, with the chunk
-plan of ``use_tpu=False``; ``encode_tokens=`` replaces the matcher.  Not
-ported, and raising ``NotImplementedError``: the multi-device mesh
-(``use_mesh=True`` over several chunks).
+plan of ``use_tpu=False``; ``encode_tokens=`` replaces the matcher.  With
+two cards or more and ``use_mesh=True``, or ``use_mesh`` left to choose
+on ``device="cuda"`` (no card named), batches of consecutive
+equal-size chunks run across the mesh's dp rows instead, a ``MatchJob`` a
+chunk on its row's card, two batches queued ahead
+(``_compress_chunks_mesh``, ``parallel/mesh.py``); the archive is the
+same.  Below two cards ``use_mesh=True`` takes the lookahead, as the JAX
+package does below two devices.
 
 Decompress: a chunk whose literal stream is one ``CTYPE_RANS`` block of
 an archive without a filter decodes its literals on the device
@@ -38,6 +43,7 @@ steps take their numpy counterparts, as the JAX package's do.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import os
@@ -61,6 +67,7 @@ from ..format.tokens import decode_token_stream, encode_token_stream, \
     replay_tokens, split_long_runs
 from ..ops.filters import apply_filter, undo_filter
 from ..ops.matcher import MatchJob, default_anchor_stride, require_runtime
+from ..parallel import mesh as pmesh
 from ..utils.hashing import ArchiveHash, stored_crc_int
 from ..utils.memplan import default_max_chunk
 from . import rzip_host
@@ -100,9 +107,8 @@ class Settings:
     bzip3_bs: int = 4
     use_tpu: bool = False          # device chunk planning (the port
     # sets this from compress_stream's device: False for device=None)
-    use_mesh: Optional[bool] = None  # dp/sp-sharded multi-device matcher;
-    # None = auto (engage when >1 device is visible, except for the
-    # single-chip device-resident rans literal path)
+    use_mesh: Optional[bool] = None  # the dp chunk mesh over several
+    # cards (parallel/mesh.py); None = auto: engage with two cards or more
     anchor_stride: int = 0         # matcher sampling; 0 = by level
     cross_chunk: bool = False      # matches reaching into earlier chunks
     lz4_test: bool = True          # compressibility gate before backends
@@ -312,10 +318,10 @@ def compress_stream(data, out: BinaryIO, settings: Optional[Settings] = None,
         pos += csize
     unlimited = settings.unlimited and len(bounds) > 1 and not custom_tokens
     queued = dev is not None and not custom_tokens
-    if queued and not unlimited and len(bounds) > 1 and settings.use_mesh:
-        raise NotImplementedError(
-            "use_mesh=True (the multi-device chunk mesh) is not ported yet; "
-            "see ROADMAP.md")
+    mesh = None
+    if queued and not unlimited and len(bounds) > 1 \
+            and (settings.use_mesh or settings.use_mesh is None):
+        mesh = pmesh.pipeline_mesh(dev, settings.use_mesh)
     stride = settings.resolved_anchor_stride()
 
     crypto = None
@@ -344,7 +350,9 @@ def compress_stream(data, out: BinaryIO, settings: Optional[Settings] = None,
         xindex = CrossChunkIndex()
         w_override = C.chunk_byte_width(total)
 
-    def finish_chunk(ci, chunk, tokens, job=None):
+    def finish_chunk(ci, chunk, tokens, job=None, stats=None):
+        """Write chunk ci; ``stats`` (default: ``job.stats``) goes to the
+        stats sink."""
         nonlocal written
         p0, csize = bounds[ci]
         if xindex is not None:
@@ -357,8 +365,10 @@ def compress_stream(data, out: BinaryIO, settings: Optional[Settings] = None,
             tokens, job, crypto, w_override)
         if hasher is not None:
             hasher.update(chunk)
-        if job is not None and settings.stats_sink is not None:
-            settings.stats_sink(dict(job.stats, chunk=ci))
+        if stats is None and job is not None:
+            stats = job.stats
+        if stats is not None and settings.stats_sink is not None:
+            settings.stats_sink(dict(stats, chunk=ci))
         if settings.progress:
             settings.progress("rzip", p0 + csize, total)
 
@@ -367,6 +377,8 @@ def compress_stream(data, out: BinaryIO, settings: Optional[Settings] = None,
             written += _compress_unlimited(out, data, bounds, ctype, cfg,
                                            settings, pool, crypto, hasher,
                                            dev)
+        elif mesh is not None:
+            _compress_chunks_mesh(mesh, data, bounds, settings, finish_chunk)
         elif queued:
             # the lookahead: chunks k+1 and k+2 are queued on the device
             # (each job on its own stream and worker thread) while chunk
@@ -390,6 +402,37 @@ def compress_stream(data, out: BinaryIO, settings: Optional[Settings] = None,
         out.write(digest)
         written += len(digest)
     return written
+
+
+def _compress_chunks_mesh(mesh, data: np.ndarray, bounds, settings: Settings,
+                          finish_chunk) -> None:
+    """The dp-sharded chunk loop (the JAX package's
+    ``_compress_chunks_mesh``): consecutive equal-size chunks form
+    batches of at most dp, each a ``parallel/mesh.MeshMatchBatch``; two
+    batches are queued ahead while the chunks of the current one are
+    collected and written in order, each with its batch's job for the
+    device literal encode."""
+    dp = mesh.devices.shape[0]
+    stride = settings.resolved_anchor_stride()
+    groups: List[List[int]] = []
+    cur: List[int] = []
+    for ci, (_, csize) in enumerate(bounds):
+        if cur and (len(cur) == dp or bounds[cur[0]][1] != csize):
+            groups.append(cur)
+            cur = []
+        cur.append(ci)
+    groups.append(cur)
+
+    def dispatch(gi):
+        return pmesh.MeshMatchBatch(
+            mesh, [data[bounds[ci][0]:bounds[ci][0] + bounds[ci][1]]
+                   for ci in groups[gi]], stride)
+
+    for gi, batch in _two_ahead(len(groups), dispatch):
+        for j, ci in enumerate(groups[gi]):
+            tokens = batch.collect(j)
+            job = batch.job_for(j)
+            finish_chunk(ci, job.data, tokens, job, batch.stats[j])
 
 
 def _compress_unlimited(out: BinaryIO, data: np.ndarray, bounds, ctype: int,
@@ -485,10 +528,16 @@ def _device_literal_block(job: MatchJob, chunk: np.ndarray, kinds, lengths,
                           settings: Settings) -> Optional[Block]:
     """The chunk's literal block from the device rANS encode: rANS when
     the payload is smaller than the literals, else the raw literals;
-    None when the chunk has no literals."""
-    enc = DeviceLiteralEncode(job.dev, kinds, lengths,
-                              ctx_bits_for_level(settings.compression_level))
-    payload = enc.payload()
+    None when the chunk has no literals.  The encode runs with the job's
+    card as the current device: the kernels launch onto the current
+    stream of the tensors' card, which a mesh row's chunk may hold while
+    another card is current."""
+    with torch.cuda.device(job.device) if job.device.type == "cuda" \
+            else contextlib.nullcontext():
+        enc = DeviceLiteralEncode(
+            job.dev, kinds, lengths,
+            ctx_bits_for_level(settings.compression_level))
+        payload = enc.payload()
     job.stats["literal_ms"] = enc.stage_ms
     job.stats["literal_lanes"] = enc.lanes
     if payload is None:

@@ -40,9 +40,10 @@ equals ``jax.lax.sort``'s multi-key order, and no stage uses a float:
 coverage sums are exact integers.
 
 ``MatchJob`` queues all of it at construction (``TpuMatchJob``): one of
-three worker threads uploads the chunk from pinned host memory and runs every
-stage, both read-backs and the host finalize, on the job's own CUDA
-stream, so the compress loops keep the next two chunks' jobs running
+its device's three worker threads uploads the chunk from pinned host
+memory and runs every stage, both read-backs and the host finalize, on
+the job's own CUDA stream, so the compress loops keep the next two
+chunks' jobs running
 while the caller packages the current one.  Where the native runtime is
 missing, ``finalize_selected`` and ``greedy_cover_from_runs`` take their
 numpy counterparts, as the JAX package's do.
@@ -549,25 +550,33 @@ def greedy_cover_from_runs(run_start: np.ndarray, run_len: np.ndarray,
 
 
 # Side streams of the match jobs: three a device, taken in turn.  The
-# compress loops keep at most three jobs live, so live jobs never share
-# one, and the allocator's blocks cached on a stream serve a later job.
+# single-device lookahead keeps at most three jobs live, and a mesh with
+# one dp row a card three a card, so there live jobs never share a
+# stream, and the allocator's blocks cached on a stream serve a later
+# job.  A test mesh that names one card for several rows keeps three jobs
+# a row on it: those take the three streams in turn, so two live jobs may
+# share one, which orders their work and changes no byte.
 _JOB_STREAMS = 3
 _streams: dict = {}
 _streams_lock = threading.Lock()
-# The jobs' worker threads, started with the first job: three, as many as
-# jobs live at once, kept so that each thread's runtime scratch (the
-# finalize's token buffers, tens of MB a chunk) serves the jobs after.
-_workers = None
+# The jobs' worker threads, a pool of three a device, each started with
+# the device's first job: as many as jobs live at once on a card, so a
+# mesh over several cards keeps each card's jobs running side by side,
+# and kept so that each thread's runtime scratch (the finalize's token
+# buffers, tens of MB a chunk) serves the jobs after.
+_workers: dict = {}
 _workers_lock = threading.Lock()
 
 
-def _worker_pool() -> ThreadPoolExecutor:
-    global _workers
+def _worker_pool(device: torch.device) -> ThreadPoolExecutor:
+    key = (device.type, device.index if device.index is not None or
+           device.type != "cuda" else torch.cuda.current_device())
     with _workers_lock:
-        if _workers is None:
-            _workers = ThreadPoolExecutor(
+        pool = _workers.get(key)
+        if pool is None:
+            pool = _workers[key] = ThreadPoolExecutor(
                 max_workers=_JOB_STREAMS, thread_name_prefix="lrzt-match-job")
-    return _workers
+    return pool
 
 
 def _job_stream(device: torch.device):
@@ -587,13 +596,14 @@ class MatchJob:
     """The matcher for one chunk on ``device`` (port of ``TpuMatchJob``).
 
     Construction queues the chunk's whole device graph and returns at
-    once: one of three worker threads uploads the chunk from pinned host
-    memory (``non_blocking``), runs the anchor stage (K1, the row minimum, the
-    candidate sort), the chain stage (the (dist, pos) sort, K10 twice,
-    the one read-back of the record count), the selection and the one
-    read-back of the selected pieces, and finalizes the tokens on the
-    host; on CUDA all of it goes to the job's own stream, so jobs queued
-    ahead run beside the caller's work.  ``collect()`` waits for the
+    once: one of its device's three worker threads uploads the chunk from
+    pinned host memory (``non_blocking``), runs the anchor stage (K1, the
+    row minimum, the candidate sort), the chain stage (the (dist, pos)
+    sort, K10 twice, the one read-back of the record count), the
+    selection and the one read-back of the selected pieces, and finalizes
+    the tokens on the host; on CUDA all of it goes to the job's own
+    stream, so jobs queued ahead run beside the caller's work.
+    ``collect()`` waits for the
     worker and returns the tokens; on CUDA the caller's current stream
     then waits on the job's stream and takes over ``dev``.
 
@@ -609,6 +619,8 @@ class MatchJob:
     loaded and its numpy counterparts where it is not.  ``stats`` holds
     the JAX package's per-chunk counters and, on CUDA, ``device_ms``:
     CUDA-event milliseconds of each device stage on the job's stream.
+    ``coarse_chains`` (stride > 1) is the count of coarse chain records,
+    the ``chains`` of the JAX package's mesh path.
     """
 
     def __init__(self, data, stride: int, device, select: bool = True,
@@ -652,7 +664,7 @@ class MatchJob:
                 dev.record_stream(self.stream)
         self.dev = dev
         self.clock = StageClock(self.device, self.stream)
-        self._future = _worker_pool().submit(self._run)
+        self._future = _worker_pool(self.device).submit(self._run)
 
     def _on_stream(self):
         """The job's device and stream as the current ones (CUDA)."""
@@ -730,6 +742,7 @@ class MatchJob:
         self.seeds = None
         self.clock.mark("chains")
         n_raw = int(fine[0].shape[0])
+        self.coarse_chains = int(coarse[0].shape[0])
         t_host = time.perf_counter()
         if not self.select:
             (kinds, lengths, dists), chains = self._walk(coarse)

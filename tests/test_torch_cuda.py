@@ -23,6 +23,7 @@ from lrzip_next_tpu_torch.models import device_path as DP
 from lrzip_next_tpu_torch.ops import rans_kernels as RK
 from lrzip_next_tpu_torch.ops import replay_ragged as RR
 from lrzip_next_tpu_torch.ops import streampack as SP
+from lrzip_next_tpu_torch.parallel import mesh as MESH
 
 pytestmark = pytest.mark.cuda
 
@@ -1956,3 +1957,60 @@ def test_multichunk_compress_card_equals_cpu(cuda):
         assert on_card == lrzt.compress(data, s, device="cpu"), kw
         assert lrzt.decompress(on_card, device="cpu") == data
         assert lrzt.decompress(on_card, device="cuda") == data
+
+
+def _mesh_archive(data: bytes, settings, mesh, monkeypatch) -> tuple:
+    """The archive of ``compress`` through ``mesh`` (pinned as the mesh
+    of the card), the batches made and each batch's jobs' devices."""
+    seen = []
+
+    class Spy(MESH.MeshMatchBatch):
+        def __init__(self, *args):
+            super().__init__(*args)
+            seen.append([job.device for job in self.jobs])
+
+    monkeypatch.setattr(MESH, "pipeline_mesh", lambda *_: mesh)
+    monkeypatch.setattr(MESH, "MeshMatchBatch", Spy)
+    archive = lrzt.compress(data, settings, device="cuda")
+    monkeypatch.undo()
+    return archive, seen
+
+
+@pytest.mark.parametrize("stride", [8, 1])
+def test_mesh_of_two_rows_on_one_card_equals_single_device(cuda, stride,
+                                                           monkeypatch):
+    """Two dp rows on one card (``["cuda:0"] * 2``), rans: the mesh
+    archive equals the single-device and the CPU archives, four chunks in
+    two batches and the odd tail in a third, each job on cuda:0, and it
+    decodes on the card."""
+    data = _repeating(4_500_000, 80).tobytes()
+    s = lrzt.Settings(method="rans", max_chunk=1 << 20, anchor_stride=stride,
+                      use_mesh=True)
+    archive, seen = _mesh_archive(
+        data, s, MESH.make_mesh(devices=["cuda:0"] * 2), monkeypatch)
+    assert len(seen) == 3 and [len(b) for b in seen] == [2, 2, 1]
+    assert all(d == torch.device("cuda:0") for b in seen for d in b)
+    single = lrzt.Settings(method="rans", max_chunk=1 << 20,
+                           anchor_stride=stride, use_mesh=False)
+    assert archive == lrzt.compress(data, single, device="cuda")
+    assert archive == lrzt.compress(data, single, device="cpu")
+    assert lrzt.decompress(archive, device="cuda") == data
+
+
+def test_mesh_across_two_cards_launches_each_row_on_its_card(cuda,
+                                                             monkeypatch):
+    """dp rows on cuda:0 and cuda:1 with cuda:0 current: the second row's
+    matcher and literal encode run on cuda:1 (the literal encode enters
+    its job's card), and the archive equals the CPU's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    data = _repeating(4_500_000, 81).tobytes()
+    s = lrzt.Settings(method="rans", max_chunk=1 << 20, use_mesh=True)
+    with torch.cuda.device(0):
+        archive, seen = _mesh_archive(
+            data, s, MESH.make_mesh(devices=["cuda:0", "cuda:1"]),
+            monkeypatch)
+    assert [b[1] for b in seen if len(b) > 1] == [torch.device("cuda:1")] * 2
+    assert archive == lrzt.compress(data, lrzt.Settings(
+        method="rans", max_chunk=1 << 20, use_mesh=False), device="cpu")
+    assert lrzt.decompress(archive, device="cuda") == data

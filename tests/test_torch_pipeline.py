@@ -111,15 +111,18 @@ def test_unknown_device_type_raises():
     {"use_mesh": True, "max_chunk": 50_000},
 ])
 def test_unported_settings_raise(kw):
-    """Only the mesh raises; ``anchor_stride=1`` (the dense matcher) and
-    ``-U`` over several chunks are ported and write the JAX package's
-    archive."""
+    """Nothing raises any more: ``anchor_stride=1`` (the dense matcher)
+    and ``-U`` over several chunks write the JAX package's archive, and
+    ``use_mesh=True`` with no mesh (the CPU, or one card) takes the
+    single-device loop and writes the ``use_mesh=False`` archive, as the
+    JAX package does below two devices."""
     data = b"ab" * 60_000
     if "use_mesh" not in kw:
         assert _same_archive(data, **kw)
         return
-    with pytest.raises(NotImplementedError):
-        lrzt.compress(data, lrzt.Settings(**kw), device="cpu")
+    ours = lrzt.compress(data, lrzt.Settings(**kw), device="cpu")
+    assert ours == _jax_archive(data, max_chunk=kw["max_chunk"])
+    assert lrzt.decompress(ours, device="cpu") == data
 
 
 def test_rans_with_filter_takes_host_literal_coder(corpus_factory):
