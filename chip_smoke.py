@@ -80,7 +80,13 @@ Phases, in order; any failure exits nonzero before the last line:
    same dense on two 64 MiB chunks (K9 twice); ``dryrun_multichip`` on 2
    and 4 mesh entries; two processes joined by ``init_distributed`` over
    127.0.0.1 (gloo), a 64 MiB chunk each, whose archive equals one
-   process's and decodes;
+   process's and decodes; then the sp axis (``phase_mesh_sp``): K1 on
+   the slabs of the 64 MiB chunk's rows at s = 2 and 4 equal to one
+   whole-chunk K1 and its plain version, four 64 MiB rans chunks on
+   meshes of 1 x 2 and 2 x 2 entries of cuda:0 (K1 once a slab, the
+   single-device archive, each chunk's tokens equal to a one-device
+   job's, per-slab device ms), their seconds per 64 MiB beside the
+   dp-only mesh, and two dense 64 MiB chunks on the 2 x 2 mesh (K9 2);
 7. card equals CPU: an 8 MiB mixed input (gzip), a 4 MiB skewed input
    whose literals make one rANS block of 4096 lanes (rans), a 4 MiB
    pasted-pieces input (rans, layered replay), a 4 MiB dense
@@ -1850,6 +1856,160 @@ def phase_mesh(big: np.ndarray) -> None:
         p.unlink()
 
 
+def sp_slab_k1(chunk: np.ndarray) -> None:
+    """K1 on the slabs of a 64 MiB chunk's anchor rows, as an sp row of 2
+    and of 4 cuts them (``matcher.sp_slabs``: whole rows, a halo of one
+    row a side, each slab's view a copy of its own): the slabs' outputs,
+    cropped to their rows and concatenated, equal one whole-chunk K1 and
+    the plain version, bit for bit; each slab's K1 time beside the
+    whole's."""
+    from lrzip_next_tpu_torch.ops.anchor import anchor_fps, \
+        anchor_fps_reference
+    from lrzip_next_tpu_torch.ops.matcher import HASH_W, sp_slabs
+    padded = padded_on_card(chunk)
+    k = (padded.shape[0] - HASH_W + 1) // STRIDE
+    whole = anchor_fps(padded, STRIDE, k * STRIDE)
+    plain = anchor_fps_reference(padded, STRIDE, k * STRIDE)
+    require(all(torch.equal(a, b) for a, b in zip(whole, plain)),
+            "whole-chunk K1 differs from its plain version")
+    whole_ms = cuda_ms(lambda: anchor_fps(padded, STRIDE, k * STRIDE))
+    for s in (2, 4):
+        slabs = sp_slabs(k, s, STRIDE, 1)
+        views = [padded[lo:hi + HASH_W - 1].clone() for _, _, lo, hi in slabs]
+        outs = [anchor_fps(v, STRIDE, hi - lo)
+                for v, (_, _, lo, hi) in zip(views, slabs)]
+        for i in (0, 1):
+            cat = torch.cat([o[i][u0 * STRIDE - lo:u1 * STRIDE - lo]
+                             for o, (u0, u1, lo, _) in zip(outs, slabs)])
+            require(torch.equal(cat, whole[i]) and torch.equal(cat, plain[i]),
+                    f"the {s} slabs' K1 output differs from one whole-chunk "
+                    f"K1 or its plain version")
+        ms = [cuda_ms(lambda v=v, w=hi - lo: anchor_fps(v, STRIDE, w))
+              for v, (_, _, lo, hi) in zip(views, slabs)]
+        log(f"mesh (f): K1 on {s} slabs of the 64 MiB chunk's {k} rows "
+            f"(rows {[u1 - u0 for u0, u1, _, _ in slabs]}, a halo row a "
+            f"side): bit-equal to one whole-chunk K1 and the plain version; "
+            f"slab ms {', '.join(f'{t:.4f}' for t in ms)} against "
+            f"{whole_ms:.4f} whole")
+        del views, outs
+    del padded, whole, plain
+    torch.cuda.empty_cache()
+
+
+def phase_mesh_sp(big: np.ndarray) -> None:
+    """The sp axis on this card: (f) K1 on slabs (``sp_slab_k1``); the 256
+    MiB corpus in four 64 MiB rans chunks through a mesh of one dp row of
+    two sp entries (1 x 2) and of two rows of two (2 x 2), all cuda:0:
+    the single-device archive byte for byte, K1 once a slab (8), K10
+    twice a chunk (8), K3-K6 once a chunk (4), each chunk's tokens equal
+    to a one-device ``MatchJob``'s, the per-slab device ms, the gather's
+    ms, the peak device memory; the seconds per 64 MiB of the 2 x 2 mesh
+    beside the dp-only mesh of two rows (median of 3, in turns); two
+    dense 64 MiB chunks on the 2 x 2 mesh (K9 once a chunk, the
+    single-device archive)."""
+    import lrzip_next_tpu_torch as lrzt
+    from lrzip_next_tpu_torch.parallel import mesh as M
+    sp_slab_k1(big[:64 * MIB])
+    raw = big.tobytes()
+    kw = {"method": "rans", "max_chunk": 64 * MIB}
+    single = lrzt.compress(raw, lrzt.Settings(use_mesh=False, **kw),
+                           device="cuda")
+    alone = [standalone_tokens(big[i * 64 * MIB:(i + 1) * 64 * MIB])
+             for i in range(4)]
+    seen = []
+
+    class Spy(M.MeshMatchBatch):
+        def collect(self, i):
+            tokens = super().collect(i)
+            seen.append(([t.copy() for t in tokens], self.jobs[i].stats))
+            return tokens
+
+    meshes = {"1 x 2": M.make_mesh(devices=["cuda:0"] * 2, dp=1),
+              "2 x 2": M.make_mesh(devices=["cuda:0"] * 4)}
+    orig, M.MeshMatchBatch = M.MeshMatchBatch, Spy
+    try:
+        for shape, mesh in meshes.items():
+            dp, sp = mesh.devices.shape
+            seen.clear()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            archive, cold, n_b = mesh_compress(raw, mesh, **kw)
+            enc = read_launches()
+            peak = torch.cuda.max_memory_allocated()
+            require(archive == single, f"the {shape} sp mesh archive differs "
+                    f"from the single-device one")
+            require(n_b == 4 // dp, f"four chunks on {shape} made {n_b} "
+                    f"batches")
+            require(enc["k1"] == 4 * sp and enc["k10"] == 8
+                    and all(enc[k] == 4 for k in LITERAL_KERNELS)
+                    and enc["k2"] == 0
+                    and not any(enc[k] for k in DECODE_KERNELS
+                                + DENSE_KERNELS),
+                    f"the {shape} sp mesh compress launched {enc}, not K1 "
+                    f"{4 * sp} (once a slab), K10 8, K3-K6 4")
+            require(len(seen) == 4 and all(
+                all(np.array_equal(a, b) for a, b in zip(tok, ref))
+                for (tok, _), ref in zip(seen, alone)),
+                f"a chunk's tokens on the {shape} sp mesh differ from a "
+                f"one-device MatchJob's")
+            log(f"mesh (f): 256 MiB rans in four 64 MiB chunks on {mesh} of "
+                f"cuda:0: equal to the single-device archive, {cold:.3f} s "
+                f"cold, batches {n_b}, launches {enc}, peak device memory "
+                f"{peak} bytes; each chunk's tokens equal a one-device "
+                f"MatchJob's")
+            for ci, (_, st) in enumerate(seen):
+                dms = st["device_ms"]
+                log(f"  chunk {ci}: first device ms: " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in dms.items())
+                    + " | slabs 1..: " + "; ".join(
+                        ", ".join(f"{k} {v:.3f}" for k, v in d.items())
+                        for d in st["sp_device_ms"])
+                    + f" | peer access {st['sp_peer']}, fill ms "
+                    f"{st['fill_ms']:.3f}")
+        del archive, single, alone
+        seen.clear()
+        half = raw[:128 * MIB]
+        dense = {"method": "rans", "max_chunk": 64 * MIB, "anchor_stride": 1}
+        single = lrzt.compress(half, lrzt.Settings(use_mesh=False, **dense),
+                               device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        archive, secs, n_b = mesh_compress(half, meshes["2 x 2"], **dense)
+        enc = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        require(archive == single,
+                "the dense sp mesh archive differs from the single-device one")
+        require(enc["k9"] == 2 and all(enc[k] == 2 for k in LITERAL_KERNELS)
+                and not any(enc[k] for k in ("k1", "k2", "k10")
+                            + DECODE_KERNELS),
+                f"the dense sp mesh compress launched {enc}, not K9 2, K3-K6 2")
+        log(f"mesh (f): 128 MiB dense rans in two 64 MiB chunks on "
+            f"{meshes['2 x 2']}: equal to the single-device archive, "
+            f"{secs:.3f} s, batches {n_b}, launches {enc}, peak device "
+            f"memory {peak} bytes")
+        for ci, (_, st) in enumerate(seen):
+            log(f"  chunk {ci}: first device ms: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in st["device_ms"].items())
+                + " | slab 1: " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in st["sp_device_ms"][0].items()))
+    finally:
+        M.MeshMatchBatch = orig
+
+    dp_only = M.make_mesh(devices=["cuda:0"] * 2)
+    runs = {"sp": [], "dp": []}
+    for order in (("sp", "dp"), ("dp", "sp"), ("sp", "dp")):
+        for which in order:
+            mesh = meshes["2 x 2"] if which == "sp" else dp_only
+            secs = mesh_compress(raw, mesh, **kw)[1]
+            runs[which].append(secs * 64 * MIB / len(raw))
+    med = {k: statistics.median(v) for k, v in runs.items()}
+    log(f"mesh (f): seconds per 64 MiB, 2 x 2 sp mesh "
+        f"{', '.join(f'{r:.4f}' for r in runs['sp'])} (median "
+        f"{med['sp']:.4f}); dp-only mesh of two rows "
+        f"{', '.join(f'{r:.4f}' for r in runs['dp'])} (median "
+        f"{med['dp']:.4f}); reported, not gated")
+
+
 def phase_card_equals_cpu() -> bytes:
     """Returns the 4 MiB skewed rans archive for the corruption phase."""
     import lrzip_next_tpu_torch as lrzt
@@ -2019,6 +2179,7 @@ def main() -> int:
     big = long_range_corpus(256 * MIB)
     phase_multichunk(big, word_soup_with_holes(16 * MIB).tobytes())
     phase_mesh(big)
+    phase_mesh_sp(big)
     del big
     phase_corrupt(phase_card_equals_cpu())
     log(f"all phases passed in {time.perf_counter() - t0:.3f} s")

@@ -22,9 +22,9 @@ plan of ``use_tpu=False``; ``encode_tokens=`` replaces the matcher.  With
 two cards or more and ``use_mesh=True``, or ``use_mesh`` left to choose
 on ``device="cuda"`` (no card named), batches of consecutive
 equal-size chunks run across the mesh's dp rows instead, a ``MatchJob`` a
-chunk on its row's card, two batches queued ahead
-(``_compress_chunks_mesh``, ``parallel/mesh.py``); the archive is the
-same.  Below two cards ``use_mesh=True`` takes the lookahead, as the JAX
+chunk on its row's first card and split over the row's sp cards, two
+batches queued ahead (``_compress_chunks_mesh``, ``parallel/mesh.py``);
+the archive is the same.  Below two cards ``use_mesh=True`` takes the lookahead, as the JAX
 package does below two devices.
 
 Decompress: a chunk whose literal stream is one ``CTYPE_RANS`` block of
@@ -107,8 +107,8 @@ class Settings:
     bzip3_bs: int = 4
     use_tpu: bool = False          # device chunk planning (the port
     # sets this from compress_stream's device: False for device=None)
-    use_mesh: Optional[bool] = None  # the dp chunk mesh over several
-    # cards (parallel/mesh.py); None = auto: engage with two cards or more
+    use_mesh: Optional[bool] = None  # the (dp, sp) chunk mesh over
+    # several cards (parallel/mesh.py); None = auto: two cards or more
     anchor_stride: int = 0         # matcher sampling; 0 = by level
     cross_chunk: bool = False      # matches reaching into earlier chunks
     lz4_test: bool = True          # compressibility gate before backends
@@ -408,10 +408,11 @@ def _compress_chunks_mesh(mesh, data: np.ndarray, bounds, settings: Settings,
                           finish_chunk) -> None:
     """The dp-sharded chunk loop (the JAX package's
     ``_compress_chunks_mesh``): consecutive equal-size chunks form
-    batches of at most dp, each a ``parallel/mesh.MeshMatchBatch``; two
-    batches are queued ahead while the chunks of the current one are
-    collected and written in order, each with its batch's job for the
-    device literal encode."""
+    batches of at most dp, each a ``parallel/mesh.MeshMatchBatch`` (chunk
+    j of a batch on dp row j, its matcher split over the row's sp
+    devices); two batches are queued ahead while the chunks of the
+    current one are collected and written in order, each with its
+    batch's job for the device literal encode."""
     dp = mesh.devices.shape[0]
     stride = settings.resolved_anchor_stride()
     groups: List[List[int]] = []

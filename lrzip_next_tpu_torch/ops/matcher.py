@@ -47,6 +47,14 @@ chunks' jobs running
 while the caller packages the current one.  Where the native runtime is
 missing, ``finalize_selected`` and ``greedy_cover_from_runs`` take their
 numpy counterparts, as the JAX package's do.
+
+A mesh's sp axis splits one job over the devices of its dp row
+(``MatchJob(sp_devices=)``; ``split_stage``, the one split that the job
+and ``match_candidates`` / ``anchor_candidates_fporder`` share): each
+device runs K1 and the row minima on its slab of anchor rows, or at
+stride 1 the fingerprints of its slab of windows, and everything global
+over the chunk runs on the row's first device.  The tokens do not depend
+on the split.
 """
 
 from __future__ import annotations
@@ -62,11 +70,12 @@ import torch
 
 from .. import runtime
 from ..format.constants import MINIMUM_MATCH
-from .anchor import HASH_W, INT32_MAX, anchor_fps, window_fps_pair
+from .anchor import HASH_W, INT32_MAX, _to_i32, anchor_fps, window_fps_pair
 from .compact import compact_masked, compact_starts
 
 # pad value of positions and distances (matcher._I32_BIG)
 _I32_BIG = 0x7FFFFFF0
+INT32_MIN = -(1 << 31)
 # Same-distance seeds within this many bytes merge into one coarse chain
 # (matcher._CHAIN_GAP): the host walk resyncs across the gaps.
 _CHAIN_GAP = 1024
@@ -132,54 +141,184 @@ def _key2(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     return hi.to(torch.int64) * (1 << 32) + lo.to(torch.int64)
 
 
-def anchor_candidates_fporder(dev: torch.Tensor, stride: int):
-    """(spos, cand) int32 of length ``(len(dev) - 31) // stride`` in
-    fingerprint order: one anchor per stride-row and its nearest previous
-    equal-fingerprint anchor (-1 where none); empty rows carry
-    ``_I32_BIG`` positions (matcher._anchor_candidates_fporder)."""
-    m = dev.shape[0] - HASH_W + 1
-    k = m // stride
-    fpa_m, fpb = anchor_fps(dev, stride, k * stride)
-    rows = fpa_m.view(k, stride)
+def sp_slabs(k: int, s: int, unit: int, halo: int) -> list:
+    """The cut of a chunk's ``k`` units over an sp row of ``s`` devices:
+    anchor rows of ``unit`` = stride window positions (``halo`` 1), or
+    single windows at stride 1 (``unit`` 1, ``halo`` 0).  Returns at most
+    ``s`` slabs of whole units, sizes differing by at most one, in chunk
+    order; slab i goes to the row's i-th device.  Each is ``(u0, u1, lo,
+    hi)``: units [u0, u1), and a view over the window positions [lo, hi),
+    the slab's positions widened by ``halo`` units a side and clipped at
+    the chunk's ends, whose bytes are [lo, hi + HASH_W - 1).  Fewer than
+    ``s`` slabs when ``k < s``, never an empty one."""
+    cut = [k * j // s for j in range(s + 1)]
+    return [(u0, u1, max(u0 - halo, 0) * unit, min(u1 + halo, k) * unit)
+            for u0, u1 in zip(cut, cut[1:]) if u1 > u0]
+
+
+def anchor_rows(view: torch.Tensor, stride: int, slab: tuple):
+    """The anchor rows [r0, r1) of ``slab = (r0, r1, lo, hi)``
+    (``sp_slabs``) from one K1 launch on ``view``, the chunk's bytes
+    [lo, hi + 31): each row's fingerprint minimum (INT32_MAX where it has
+    no anchor), its anchor's chunk position, the leftmost column holding
+    the minimum (``_I32_BIG`` where none), as int32, and the 8 low bits of
+    that window's second fingerprint as uint8.
+
+    K1 treats the view's ends as the chunk's (``anchor.py``): a halo of
+    one row, at least the window's h = stride / 2 positions, keeps an
+    interior slab edge from changing an anchor, and only the first and
+    last slab meet the chunk's edges."""
+    r0, r1, lo, hi = slab
+    kk = r1 - r0
+    c0 = r0 * stride - lo
+    fpa_m, fpb = anchor_fps(view, stride, hi - lo)
+    rows = fpa_m[c0:c0 + kk * stride].view(kk, stride)
     row_min = rows.amin(dim=1)
-    cols = torch.arange(stride, dtype=torch.int64, device=dev.device)
+    cols = torch.arange(stride, dtype=torch.int64, device=view.device)
     # leftmost column holding the row minimum (the JAX suffix-min keeps
     # the left one on ties; torch.min's tie index is not specified)
     col = torch.where(rows == row_min[:, None], cols, stride).amin(dim=1)
-    flat = torch.arange(k, dtype=torch.int64, device=dev.device) * stride \
-        + col
-    fpb8 = fpb[flat] & 255                    # 8-bit collision check
-    a_pos = torch.where(row_min != INT32_MAX, flat.to(torch.int32),
+    at = torch.arange(kk, dtype=torch.int64, device=view.device) * stride \
+        + c0 + col
+    fpb8 = (fpb[at] & 255).to(torch.uint8)    # 8-bit collision check
+    a_pos = torch.where(row_min != INT32_MAX, (at + lo).to(torch.int32),
                         _I32_BIG)
+    return row_min, a_pos, fpb8
+
+
+def candidates_from_rows(row_min, a_pos, fpb8):
+    """(spos, cand) int32 in fingerprint order from the anchor rows of a
+    whole chunk (``anchor_rows``): one sort by (fpa, pos); each anchor's
+    candidate is the nearest previous anchor with the same fingerprint
+    and the same 8-bit check (-1 where none)."""
     order = torch.argsort(_key2(row_min, a_pos), stable=True)
-    sfpa, spos, sfpb = row_min[order], a_pos[order], fpb8[order]
+    sfpa, spos = row_min[order], a_pos[order]
+    sfpb = fpb8[order].to(torch.int32)
     same = (sfpa == _prev(sfpa, INT32_MAX)) & (sfpb == _prev(sfpb, -1)) \
         & (sfpa != INT32_MAX)
     cand = torch.where(same, _prev(spos, 0), -1)
     return spos, cand
 
 
-def match_candidates(data: torch.Tensor):
+def _slab_fps(view: torch.Tensor, slab: tuple):
+    """Both fingerprints of the windows of a stride-1 slab's view, as
+    int32 bit patterns (8 bytes a window to the row's first device, not
+    16)."""
+    return tuple(_to_i32(f) for f in window_fps_pair(view))
+
+
+def _row_devices(sp_devices, home) -> list:
+    """The devices of a dp row as a list (``[home]`` for None)."""
+    if sp_devices is None or len(sp_devices) == 0:
+        return [torch.device(home)]
+    return [torch.device(d) for d in sp_devices]
+
+
+def split_stage(dev: torch.Tensor, stride: int, devices, streams=None,
+                clock: Optional["StageClock"] = None):
+    """The chunk's per-slab stage over the devices of a dp row (the mesh's
+    sp axis; one device is one slab over the whole chunk): at stride > 1
+    the anchor rows (``anchor_rows``), at stride 1 both fingerprints of
+    every window as int32 bit patterns (``_slab_fps``).  ``dev`` is the
+    padded chunk on ``devices[0]``; slab i (``sp_slabs``) runs on
+    ``devices[i]``.  Returns the outputs on ``dev``'s device, in chunk
+    order, and the ``StageClock``s of slabs 1.. (upload, the stage,
+    gather).
+
+    Slab i > 0 copies its view's bytes from ``dev`` to its device and
+    runs on ``streams[i - 1]`` (its device's current stream where
+    ``streams`` is None); slab 0 runs on the current stream of ``dev``'s
+    device, and only then are the other slabs' outputs copied there, so
+    the slabs run side by side.  A copy between two cards waits on, and
+    is waited on by, the current streams of both (PyTorch's barrier); the
+    explicit waits and ``record_stream`` order a row that repeats a
+    device, where ``.to`` makes no copy, the same way.  ``clock`` (the
+    job's) marks the stage after slab 0 and the gather."""
+    home = dev.device
+    m = dev.shape[0] - HASH_W + 1
+    if stride == 1:
+        slabs, work, stage = sp_slabs(m, len(devices), 1, 0), _slab_fps, \
+            "fingerprints"
+    else:
+        slabs, stage = sp_slabs(m // stride, len(devices), stride, 1), \
+            "anchors"
+
+        def work(view, slab):
+            return anchor_rows(view, stride, slab)
+    streams = streams or [None] * len(devices)
+    here = torch.cuda.current_stream(home) if home.type == "cuda" else None
+    queued = []
+    for slab, device, stream in zip(slabs[1:], devices[1:], streams):
+        _, _, lo, hi = slab
+        with _on(device, stream):
+            if stream is not None:
+                stream.wait_stream(here)
+            slab_clock = StageClock(device, stream)
+            slab_clock.mark("start")
+            view = dev[lo:hi + HASH_W - 1].to(device, non_blocking=True)
+            slab_clock.mark("upload")
+            out = work(view, slab)
+            slab_clock.mark(stage)
+            del view
+        queued.append((device, stream, slab_clock, out))
+    _, _, lo, hi = slabs[0]
+    parts = [work(dev[lo:hi + HASH_W - 1], slabs[0])]
+    if clock is not None:
+        clock.mark(stage)
+    for device, stream, slab_clock, out in queued:
+        with _on(device, stream):
+            out = tuple(t.to(home, non_blocking=True) for t in out)
+            slab_clock.mark("gather")
+        if stream is not None:
+            here.wait_stream(stream)
+            for t in out:
+                t.record_stream(here)
+        parts.append(out)
+    out = [torch.cat(p) if len(p) > 1 else p[0] for p in zip(*parts)]
+    if clock is not None:
+        clock.mark("gather")
+    return out, [c for _, _, c, _ in queued]
+
+
+def anchor_candidates_fporder(dev: torch.Tensor, stride: int,
+                              sp_devices=None):
+    """(spos, cand) int32 of length ``(len(dev) - 31) // stride`` in
+    fingerprint order: one anchor per stride-row and its nearest previous
+    equal-fingerprint anchor (-1 where none); empty rows carry
+    ``_I32_BIG`` positions (matcher._anchor_candidates_fporder).
+
+    ``sp_devices`` (the devices of a dp row, ``dev``'s first) splits the
+    rows over them (``split_stage``); the sort runs on the first, where
+    the result lies.  The result does not depend on the split."""
+    rows, _ = split_stage(dev, stride, _row_devices(sp_devices, dev.device))
+    return candidates_from_rows(*rows)
+
+
+def match_candidates(data: torch.Tensor, sp_devices=None):
     """(cand, ok) for every 32-byte window of a uint8 tensor: the nearest
     previous window with the same two fingerprints as int32 (-1 where
     none) and ``cand >= 0``; length ``len(data) - 31``
-    (matcher.match_candidates).
+    (matcher.match_candidates).  ``sp_devices`` (the devices of a dp row,
+    ``data``'s first) splits the fingerprints' windows over them
+    (``split_stage``); the sort runs on the first, where the result
+    lies."""
+    fps, _ = split_stage(data, 1, _row_devices(sp_devices, data.device))
+    return candidates_from_fps(*fps)
+
+
+def candidates_from_fps(fpa: torch.Tensor, fpb: torch.Tensor):
+    """``match_candidates`` from the two fingerprints of every window, as
+    int32 bit patterns (``_slab_fps``).
 
     One sort by (fpa as uint32, pos); the second fingerprint rides along
     and is compared on all 32 bits.  The sorted positions are a
     permutation of 0..m-1, so the way back to position order is a scatter
     (the JAX package sorts a second time)."""
-    return candidates_from_fps(*window_fps_pair(data))
-
-
-def candidates_from_fps(fpa: torch.Tensor, fpb: torch.Tensor):
-    """``match_candidates`` from the two fingerprints of every window
-    (uint32 values in int64, as ``anchor.window_fps_pair`` returns
-    them)."""
     m = fpa.shape[0]
     dev = fpa.device
-    # uint32 order of fpa as the signed order of an int64 key
-    key = ((fpa - (1 << 31)) << 32) | torch.arange(
+    # uint32 order of fpa as the signed order of an int64 key: flipping
+    # the sign bit maps the uint32 value u to the int32 u - 2**31
+    key = ((fpa ^ INT32_MIN).to(torch.int64) << 32) | torch.arange(
         m, dtype=torch.int64, device=dev)
     key = torch.sort(key).values
     spos = key & 0xFFFFFFFF
@@ -558,6 +697,11 @@ def greedy_cover_from_runs(run_start: np.ndarray, run_len: np.ndarray,
 # share one, which orders their work and changes no byte.
 _JOB_STREAMS = 3
 _streams: dict = {}
+# The slab streams of the sp split (``MatchJob(sp_devices=)``): three a
+# device, a ring of their own, so a job's slab work never takes a stream
+# that a live job holds, even on a row that repeats the job's device.
+# Two live jobs' slabs may share one: that orders them, no more.
+_slab_streams: dict = {}
 _streams_lock = threading.Lock()
 # The jobs' worker threads, a pool of three a device, each started with
 # the device's first job: as many as jobs live at once on a card, so a
@@ -579,17 +723,37 @@ def _worker_pool(device: torch.device) -> ThreadPoolExecutor:
     return pool
 
 
-def _job_stream(device: torch.device):
+def _next_stream(rings: dict, device: torch.device):
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     with _streams_lock:
-        ring = _streams.get(index)
+        ring = rings.get(index)
         if ring is None:
-            ring = _streams[index] = [
+            ring = rings[index] = [
                 [torch.cuda.Stream(index) for _ in range(_JOB_STREAMS)], 0]
         stream = ring[0][ring[1] % _JOB_STREAMS]
         ring[1] += 1
     return stream
+
+
+def _job_stream(device: torch.device):
+    return _next_stream(_streams, device)
+
+
+def _slab_stream(device: torch.device):
+    return _next_stream(_slab_streams, device)
+
+
+def _on(device: torch.device, stream=None):
+    """``device``, and ``stream`` where given, as the current ones (CUDA;
+    a null context on another device)."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.cuda.device(device))
+    if stream is not None:
+        stack.enter_context(torch.cuda.stream(stream))
+    return stack
 
 
 class MatchJob:
@@ -621,10 +785,30 @@ class MatchJob:
     CUDA-event milliseconds of each device stage on the job's stream.
     ``coarse_chains`` (stride > 1) is the count of coarse chain records,
     the ``chains`` of the JAX package's mesh path.
+
+    ``sp_devices`` names the devices of the chunk's dp row, ``device``
+    first (the mesh's sp axis).  The job's first device stage is
+    ``split_stage`` over them: with s > 1 it splits what the JAX
+    package's ``P("dp", "sp")`` sharding splits, at stride > 1 each
+    slab's K1 and row minima on its device over its rows and a halo of
+    one row a side, at stride 1 the windows' fingerprints, narrowed to
+    int32 for the trip.  Slab i > 0 copies its bytes from ``dev`` and
+    runs on a slab stream of its device (a ring of its own, never a live
+    job's stream), and its outputs come back to ``device`` after slab 0
+    has been queued on the job stream; nothing is read back on another
+    device.  Everything global over the chunk (the candidate sort, the
+    chains, K9, the selection, the read-backs, the host finalize) runs
+    on ``device`` as in a one-device job, so the tokens do not depend on
+    the split.  ``stats["sp_device_ms"]`` holds each slab i > 0's stages
+    (upload: the copy from ``dev``, anchors or fingerprints, gather: the
+    copy back) on its stream, and ``sp_peer`` whether ``device`` can
+    reach its device directly (``torch.cuda.can_device_access_peer``;
+    None for the same device): without peer access the copies stage
+    through the host.
     """
 
     def __init__(self, data, stride: int, device, select: bool = True,
-                 dev: Optional[torch.Tensor] = None):
+                 dev: Optional[torch.Tensor] = None, sp_devices=None):
         data = np.asarray(data, dtype=np.uint8)
         if stride not in (1, 2, 4, 8, 16, 32):
             raise ValueError(f"anchor stride {stride} not in 1..32 "
@@ -633,6 +817,11 @@ class MatchJob:
         self.stride = stride
         self.n = len(data)
         self.device = torch.device(device)
+        self.sp_devices = _row_devices(sp_devices, self.device)
+        if self.sp_devices[0] != self.device or any(
+                d.type != self.device.type for d in self.sp_devices):
+            raise ValueError(f"sp_devices {self.sp_devices} must start with "
+                             f"{self.device} and share its type")
         self.select = select and stride > 1
         self.walked = False
         self.stats: dict = {}
@@ -668,12 +857,7 @@ class MatchJob:
 
     def _on_stream(self):
         """The job's device and stream as the current ones (CUDA)."""
-        if self.stream is None:
-            return contextlib.nullcontext()
-        stack = contextlib.ExitStack()
-        stack.enter_context(torch.cuda.device(self.device))
-        stack.enter_context(torch.cuda.stream(self.stream))
-        return stack
+        return _on(self.device, self.stream)
 
     def _run(self):
         with self._on_stream():
@@ -699,18 +883,21 @@ class MatchJob:
             self.dev.copy_(host, non_blocking=True)
         del host
         self.clock.mark("upload")
+        streams = [_slab_stream(d) for d in self.sp_devices[1:]] \
+            if self.stream is not None else None
+        out, self._sp_clocks = split_stage(self.dev, self.stride,
+                                           self.sp_devices, streams,
+                                           self.clock)
         if self.stride == 1:
-            return self._dense()
-        return self._anchored()
+            return self._dense(out)
+        return self._anchored(out)
 
-    def _dense(self):
-        """Stride 1: fingerprints, candidates, the runs' compaction and
-        read-back, then the host greedy cover in verified mode (exact
-        runs, not gap-merged records)."""
-        fps = window_fps_pair(self.dev)
-        self.clock.mark("fingerprints")
+    def _dense(self, fps):
+        """Stride 1: candidates from the fingerprints, the runs'
+        compaction and read-back, then the host greedy cover in verified
+        mode (exact runs, not gap-merged records)."""
         cand, ok = candidates_from_fps(*fps)
-        del fps
+        fps.clear()             # the caller's list: frees the fingerprints
         self.clock.mark("candidates")
         self.runs = compact_runs(cand, ok, self.limit)
         del cand, ok
@@ -732,10 +919,11 @@ class MatchJob:
                                      data=self.data, gap_merged=True)
         return res, len(pw)
 
-    def _anchored(self):
+    def _anchored(self, rows):
         global walk_fallbacks
-        self.seeds = anchor_candidates_fporder(self.dev, self.stride)
-        self.clock.mark("anchors")
+        self.seeds = candidates_from_rows(*rows)
+        rows.clear()
+        self.clock.mark("candidates")
         fine, coarse = compact_seeds_dual(*self.seeds, self.limit,
                                           verify_gap(self.stride),
                                           _CHAIN_GAP)
@@ -783,8 +971,16 @@ class MatchJob:
             "literal_bytes": int(lengths[~m].sum()),
         }
         if self.device.type == "cuda":
+            # the job stream waited on every slab's last event
             self.clock.sync()
             self.stats["device_ms"] = self.clock.ms()
+            if len(self.sp_devices) > 1:
+                self.stats["sp_device_ms"] = [c.ms() for c in
+                                              self._sp_clocks]
+                self.stats["sp_peer"] = [
+                    None if d == self.device else
+                    torch.cuda.can_device_access_peer(self.device, d)
+                    for d in self.sp_devices[1:len(self._sp_clocks) + 1]]
             self.stats["host_ms"] = host_ms
             if self._upload:
                 self.stats["fill_ms"] = self.fill_ms

@@ -1,4 +1,4 @@
-"""The chunk mesh of the port: independent chunks on several devices.
+"""The chunk mesh of the port: chunks on a (dp, sp) grid of devices.
 
 Port of ``lrzip_next_tpu/parallel/mesh.py``.  The archive format makes
 rzip chunks independent (own window, own CRC), so a batch of consecutive
@@ -6,31 +6,31 @@ equal-size chunks runs across the devices of the mesh's dp axis at once,
 and the archive equals the single-device one byte for byte.
 
 In the port the dp axis is one ``MatchJob`` a chunk: chunk j of a batch
-runs on ``mesh.devices[j, 0]``, the first device of dp row j, on its own
-stream and worker thread (``ops/matcher.py``), and its padded chunk stays
-there for the device literal encode.
+runs on dp row j, on its first device's stream and worker thread
+(``ops/matcher.py``), and its padded chunk stays there for the device
+literal encode.  The sp axis splits that job over the row's devices
+(``MatchJob(sp_devices=mesh.devices[j, :])``), where the JAX package
+shards the chunk's window ``P("dp", "sp")`` and lets XLA insert the
+collectives: at stride > 1 each device runs K1 and the row minima on its
+slab of anchor rows (whole rows and a halo of one row a side), at stride
+1 the fingerprints of its slab of windows; the rows or fingerprints go to
+the row's first device, where the global stages run as in a one-device
+job (the candidate sort over the chunk, the chains, K9 and the
+selection, the read-backs, the host finalize).  So the tokens, and the
+archive, do not depend on the mesh's shape.
 
-Left behind, on purpose:
-
-- **the sp axis.**  The JAX package shards one chunk's window over a dp
-  row's devices and lets XLA insert the collectives of the sorts and
-  scans.  Nothing in the port splits one chunk, so a row's devices after
-  the first stay idle: the port runs dp only.  ``make_mesh`` still shapes
-  a mesh (dp, sp) as the JAX package does; ``pipeline_mesh`` puts every
-  card on the dp axis.
-- **the cap, the zero-padded batch rows and the overflow redo.**  The
-  port's ``MatchJob`` reads its record count back and has no cap
-  (ROADMAP "Cap hints and overflow redos are gone"), so a batch holds
-  only real chunks and nothing is ever redone.
+Left behind, on purpose: the cap, the zero-padded batch rows and the
+overflow redo.  The port's ``MatchJob`` reads its record count back and
+has no cap (ROADMAP "Cap hints and overflow redos are gone"), so a batch
+holds only real chunks and nothing is ever redone.
 
 Why a loop of its own (``models/pipeline._compress_chunks_mesh``) and
 not the lookahead with each job placed on the next card in turn: the
 lookahead keeps three jobs live in all, the mesh loop two batches ahead
-of the current one, so three jobs on every card of a mesh with one row a
-card; and its stats are the JAX mesh path's (``chains`` counts coarse
-chain records), which the tests hold against that path batch by batch.
-On one card (a test mesh) the two loops do the same work in another
-order.
+of the current one, so three jobs on every row of a mesh; and its stats
+are the JAX mesh path's (``chains`` counts coarse chain records), which
+the tests hold against that path batch by batch.  On one card (a test
+mesh) the two loops do the same work in another order.
 
 ``shard_blocks`` and ``sharded_match_step`` are the JAX module's
 exports, kept as its counterparts and held against them by the tests:
@@ -59,7 +59,8 @@ STATS_KEYS = ("chunk_bytes", "chains", "matches", "match_bytes",
 
 class Mesh:
     """A (dp, sp) grid of devices: ``devices`` is a numpy object array of
-    ``torch.device``s, ``axis_names`` is ``("dp", "sp")``."""
+    ``torch.device``s, ``axis_names`` is ``("dp", "sp")``.  Row j holds
+    chunk j of a batch; its sp devices split that chunk's matcher."""
 
     axis_names = ("dp", "sp")
 
@@ -74,7 +75,9 @@ def make_mesh(n_devices: Optional[int] = None, dp: Optional[int] = None,
               devices: Optional[Sequence] = None) -> Mesh:
     """A (dp, sp) mesh over the first ``n_devices`` of ``devices``, by
     default the squarest factorisation with dp >= sp (8 -> 4 x 2, 4 -> 2 x
-    2, 2 -> 2 x 1), as the JAX package's ``make_mesh``.
+    2, 2 -> 2 x 1), as the JAX package's ``make_mesh``: dp rows take a
+    batch's chunks, and each row's sp devices split its chunk's matcher
+    (``MeshMatchBatch``).
 
     ``devices`` defaults to every card, ``cuda:0 .. device_count() - 1``
     (CUDA is required then).  An explicit list may name one device more
@@ -115,12 +118,14 @@ def sharded_match_step(mesh: Mesh):
     """The matcher's candidate stages over a (B, L) uint8 batch of chunks,
     B a multiple of dp (the JAX package's ``sharded_match_step``).
 
-    Row b runs on the first device of its dp row (the rows split into dp
-    contiguous blocks, as a "dp"-sharded batch does): ``match_candidates``
-    and ``chain_runs``.  Returns ``(cand, ok, coverage)``: int32 and bool
-    (B, L) tensors on ``mesh.devices[0, 0]``, padded past the last window
-    with -1 and False, and the total count of ok positions as an int.
-    A parity counterpart: no compress path runs it."""
+    Row b runs on its dp row (the rows split into dp contiguous blocks,
+    as a "dp"-sharded batch does): ``match_candidates`` with the window's
+    fingerprints split over the row's sp devices, as a ``MatchJob``
+    splits them, and ``chain_runs`` on the row's first device.  Returns
+    ``(cand, ok, coverage)``: int32 and bool (B, L) tensors on
+    ``mesh.devices[0, 0]``, padded past the last window with -1 and
+    False, and the total count of ok positions as an int.  A parity
+    counterpart: no compress path runs it."""
     dp = mesh.devices.shape[0]
 
     def step(batch) -> tuple:
@@ -133,8 +138,8 @@ def sharded_match_step(mesh: Mesh):
         cands, oks = [], []
         total = 0
         for b in range(b_rows):
-            dev = mesh.devices[b // per, 0]
-            cand, ok = match_candidates(batch[b].to(dev))
+            row = mesh.devices[b // per]
+            cand, ok = match_candidates(batch[b].to(row[0]), sp_devices=row)
             chain_runs(cand, ok)
             total += int(ok.sum())
             pad = length - cand.shape[0]
@@ -150,9 +155,13 @@ def sharded_match_step(mesh: Mesh):
 def pipeline_mesh(device, use_mesh: Optional[bool] = None
                   ) -> Optional[Mesh]:
     """The mesh of the compress path on ``device``: None for the CPU and
-    below two cards (the single-device lookahead then), else every card
-    on the dp axis (n x 1): with no sp axis in the port, the JAX
-    package's squarest shape would leave half the cards idle.
+    below two cards (the single-device lookahead then), else the JAX
+    package's ``make_mesh()`` over every card, the squarest (dp, sp)
+    shape with dp >= sp (2 -> 2 x 1, 4 -> 2 x 2, 8 -> 4 x 2): dp rows take
+    chunks, and a row's sp devices split each of its chunks.  On four
+    cards it compresses at the pace of every card on dp (n x 1), within
+    the spread of their runs (``tools/torch_mesh_shapes.py``): the main
+    thread's work a chunk sets that pace, not the rows.
 
     ``use_mesh`` is the setting of that name.  Left to choose (None), the
     mesh is taken only for a device named without an index (``"cuda"``):
@@ -163,15 +172,16 @@ def pipeline_mesh(device, use_mesh: Optional[bool] = None
         return None
     if use_mesh is None and torch.device(device).index is not None:
         return None
-    return make_mesh(dp=torch.cuda.device_count())
+    return make_mesh()
 
 
 class MeshMatchBatch:
-    """dp-sharded matcher dispatch for a batch of at most dp equal-size
-    chunks (the JAX package's ``MeshMatchBatch``).
+    """(dp, sp)-sharded matcher dispatch for a batch of at most dp
+    equal-size chunks (the JAX package's ``MeshMatchBatch``).
 
-    Construction queues one ``MatchJob`` a chunk, chunk j on
-    ``mesh.devices[j, 0]``, and returns.  ``collect(i)`` returns chunk
+    Construction queues one ``MatchJob`` a chunk, chunk j on dp row j:
+    on ``mesh.devices[j, 0]``, split over the row's sp devices
+    (``sp_devices=mesh.devices[j, :]``), and returns.  ``collect(i)`` returns chunk
     i's tokens and fills ``stats[i]`` with the JAX mesh path's counters
     (``chains`` counts the coarse chain records at stride > 1, the runs at
     stride 1); ``job_for(i)`` is chunk i's job, whose ``dev`` feeds the
@@ -187,7 +197,8 @@ class MeshMatchBatch:
             raise ValueError("a mesh batch takes equal-size chunks")
         self.stride = stride
         self.jobs = [MatchJob(np.asarray(c, dtype=np.uint8), stride,
-                              mesh.devices[j, 0])
+                              mesh.devices[j, 0],
+                              sp_devices=list(mesh.devices[j]))
                      for j, c in enumerate(chunks)]
         self.stats: list = [{} for _ in chunks]
         with _build.count_lock:

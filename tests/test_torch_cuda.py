@@ -1459,6 +1459,81 @@ def test_compact_seeds_dual_card_equals_cpu(cuda, stride):
             assert a.is_cuda and torch.equal(a.cpu(), b)
 
 
+# --- the sp axis: one chunk's matcher split over a dp row's devices ---------
+
+@pytest.mark.parametrize("n", [2 * 8160 + 31, 2 * 8160 + 31 + 8 * 3 + 5,
+                               5 * 8160 + 777])
+@pytest.mark.parametrize("s", [2, 3, 4])
+@pytest.mark.parametrize("stride", [2, 8, 32])
+def test_k1_on_sp_slabs_at_edge_sizes(cuda, stride, s, n):
+    """K1 on each slab's own copy of its view (whole rows and a halo of
+    one row a side, ``matcher.sp_slabs``), at sizes around K1's block of
+    8160 positions: one launch a slab, and the slabs' rows concatenated
+    equal the whole chunk's on the card and on the CPU."""
+    raw = _repeating(n, n + s + stride)
+    dev = torch.from_numpy(raw).to(cuda)
+    k = (n - 31) // stride
+    whole = PM.anchor_rows(dev[:k * stride + 31], stride,
+                           (0, k, 0, k * stride))
+    slabs = PM.sp_slabs(k, s, stride, 1)
+    before = A.launches
+    parts = [PM.anchor_rows(dev[lo:hi + 31].clone(), stride,
+                            (u0, u1, lo, hi)) for u0, u1, lo, hi in slabs]
+    torch.cuda.synchronize()
+    assert A.launches == before + len(slabs)
+    cpu = PM.anchor_rows(torch.from_numpy(raw[:k * stride + 31]), stride,
+                         (0, k, 0, k * stride))
+    for w, p, c in zip(whole, zip(*parts), cpu):
+        assert torch.equal(w, torch.cat(p)) and torch.equal(w.cpu(), c)
+
+
+@pytest.mark.parametrize("s", [2, 4])
+@pytest.mark.parametrize("stride", [8, 1])
+def test_sp_row_on_one_card_equals_one_device(cuda, stride, s):
+    """A row that repeats cuda:0: each slab on a slab stream of its own
+    (never a live job's), the tokens and counters of a one-device job on
+    the CPU, and the slabs' stages in ``sp_device_ms``."""
+    raw = _repeating(3_000_000, 90 + s)
+    one = PM.MatchJob(raw, stride, "cpu")
+    jobs = [PM.MatchJob(raw, stride, "cuda:0", sp_devices=["cuda:0"] * s)
+            for _ in range(3)]
+    ref = one.collect()
+    for job in jobs:
+        tokens = job.collect()
+        assert all(np.array_equal(a, b) for a, b in zip(tokens, ref))
+        assert {k: job.stats[k] for k in one.stats} == one.stats
+        assert len(job.stats["sp_device_ms"]) == s - 1
+        assert "gather" in job.stats["device_ms"]
+        assert job.stats["sp_peer"] == [None] * (s - 1)
+
+
+def test_sp_row_across_two_cards_equals_one_device(cuda, monkeypatch):
+    """An sp row of cuda:0 and cuda:1: slab 1 runs on cuda:1 and its rows
+    come back to cuda:0 (by a peer copy where the cards allow one); the
+    tokens equal the one-device job's, and a 1 x 2 mesh writes the CPU's
+    archive."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    raw = _repeating(3_000_000, 95)
+    for stride in (8, 1):
+        job = PM.MatchJob(raw, stride, "cuda:0",
+                          sp_devices=["cuda:0", "cuda:1"])
+        tokens = job.collect()
+        ref = PM.MatchJob(raw, stride, "cpu").collect()
+        assert all(np.array_equal(a, b) for a, b in zip(tokens, ref))
+        assert job.stats["sp_peer"] == [
+            torch.cuda.can_device_access_peer(0, 1)]
+    data = _repeating(4_500_000, 96).tobytes()
+    s = lrzt.Settings(method="rans", max_chunk=1 << 20, use_mesh=True)
+    with torch.cuda.device(0):
+        archive, seen = _mesh_archive(
+            data, s, MESH.make_mesh(devices=["cuda:0", "cuda:1"], dp=1),
+            monkeypatch)
+    assert archive == lrzt.compress(data, lrzt.Settings(
+        method="rans", max_chunk=1 << 20, use_mesh=False), device="cpu")
+    assert lrzt.decompress(archive, device="cuda") == data
+
+
 # --- K1 and K3 as redesigned: spans and tiles, slices, the zero tail ---------
 
 _K1_TILE = 8160     # positions a K1 block writes (anchor_fps.cu kTile)

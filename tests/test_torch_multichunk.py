@@ -271,7 +271,8 @@ def test_job_error_reaches_collect(monkeypatch):
     def boom(*a, **kw):
         raise RuntimeError("anchor stage failed")
 
-    monkeypatch.setattr(PM, "anchor_candidates_fporder", boom)
+    # the job's anchor stage begins in split_stage (K1 and the row minima)
+    monkeypatch.setattr(PM, "split_stage", boom)
     job = PM.MatchJob(np.arange(10_000, dtype=np.uint8), 8, CPU)
     with pytest.raises(RuntimeError, match="anchor stage failed"):
         job.collect()

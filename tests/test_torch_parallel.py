@@ -250,14 +250,19 @@ def test_use_mesh_without_a_mesh_takes_the_single_device_loop(data,
 
 
 def test_pipeline_mesh_needs_two_cards_and_puts_all_on_dp(monkeypatch):
+    """Below two cards no mesh; from two, the JAX package's ``make_mesh()``
+    shape over every card: 2 -> (2, 1), 4 -> (2, 2), 8 -> (4, 2).  (The
+    name is the test's from when the port ran dp only and put every card
+    on dp; every card is still in the mesh, now in the JAX shape.)"""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert PM.pipeline_mesh("cuda") is None
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    mesh = PM.pipeline_mesh("cuda")
-    assert mesh.devices.shape == (4, 1)
-    assert list(mesh.devices[:, 0]) == [torch.device("cuda", i)
-                                        for i in range(4)]
+    for n, shape in ((2, (2, 1)), (4, (2, 2)), (8, (4, 2))):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda n=n: n)
+        mesh = PM.pipeline_mesh("cuda")
+        assert mesh.devices.shape == shape == JM.make_mesh(n).devices.shape
+        assert list(mesh.devices.flat) == [torch.device("cuda", i)
+                                           for i in range(n)]
     assert PM.pipeline_mesh("cpu") is None
 
 
