@@ -1,0 +1,8 @@
+"""decompress_MBps: output bytes of every decompress in the window over
+their summed wall seconds, in 10^6 bytes a second."""
+
+from portbench.core.readings import rate_mb_s
+
+
+def read(run):
+    return rate_mb_s(run, "decompress", "bytes_out")
