@@ -7,14 +7,16 @@ both directions of the single-device chunk loop.
 Compress: each chunk goes through the GPU matcher (``ops/matcher.py``:
 the anchor-seed pipeline, or with ``anchor_stride=1`` the dense one).
 Chunks k+1 and k+2 are queued on the device, each ``MatchJob`` on its
-own stream and worker thread, while chunk k is packaged, hashed and
-written (the JAX package's lookahead).  With ``method="rans"`` and no
-filter a chunk's literal stream is then rANS-encoded on the device from
-the chunk the matcher uploaded (``models/device_path.py``), and only the
-payload comes back.  Every other method compresses the literals on the
-host.  Chunks are planned with the 256 MiB device chunk cap
-(``use_tpu=True`` in the JAX package's terms), which makes the archives
-equal to that package's device path.  ``-U`` over several chunks
+own stream and worker thread, while chunk k is packaged and written (the
+JAX package's lookahead).  The archive hash runs over the whole input on
+a thread of its own (``utils/hashing.HashThread``) beside all of it.
+With ``method="rans"`` and no filter a chunk's literal stream is then
+rANS-encoded on the device from the chunk the matcher uploaded
+(``models/device_path.py``), and only the payload comes back.  Every
+other method compresses the literals on the host.  Chunks are planned
+with the 256 MiB device chunk cap (``use_tpu=True`` in the JAX
+package's terms), which makes the archives equal to that package's
+device path.  ``-U`` over several chunks
 (``_compress_unlimited``) matches each window on the device, two queued
 ahead, and writes one whole-file chunk whose literals take the host
 codecs.  ``device=None`` takes the host matcher instead, with the chunk
@@ -68,7 +70,7 @@ from ..format.tokens import decode_token_stream, encode_token_stream, \
 from ..ops.filters import apply_filter, undo_filter
 from ..ops.matcher import MatchJob, default_anchor_stride, require_runtime
 from ..parallel import mesh as pmesh
-from ..utils.hashing import ArchiveHash, stored_crc_int
+from ..utils.hashing import ArchiveHash, HashThread, stored_crc_int
 from ..utils.memplan import default_max_chunk
 from ..utils.spans import OpStats, stage, timed
 from . import rzip_host
@@ -301,11 +303,17 @@ def compress_stream(data, out: BinaryIO, settings: Optional[Settings] = None,
     matcher, as the JAX package's hook does: its chunks are neither
     queued ahead nor matched as ``-U`` windows on the device.
 
+    The archive hash (none with hash code 0) runs over the whole input
+    on a thread of its own from the end of set-up; the calling thread
+    waits for it after the last chunk (``compress.hash_wait``), and
+    ``compress.hash`` writes the digest.
+
     ``settings.stats_sink`` takes a dict a chunk: the matcher's counters
     (``chunk_bytes`` alone from the host matcher), ``chunk``, ``op``
     ("compress"), ``main_ms`` (the calling thread's stages,
     ``utils/spans.py``) and the pool threads' ``backend_ms``; the last
-    chunk's dict, with the operation's own stages, when it ends."""
+    chunk's dict, with the operation's own stages and the hash thread's
+    ``hash_ms``, when it ends."""
     ops = OpStats(settings.stats_sink if settings is not None else None,
                   "compress")
     with stage("compress.setup", ops.op_ms):
@@ -352,7 +360,6 @@ def compress_stream(data, out: BinaryIO, settings: Optional[Settings] = None,
         out.write(magic.encode())
         written = magic.header_len
 
-        hasher = ArchiveHash(magic.hash_code) if magic.hash_code else None
         cfg = _backend_cfg(settings)
 
         # cross-chunk matching: distances may reach into earlier chunks,
@@ -364,6 +371,8 @@ def compress_stream(data, out: BinaryIO, settings: Optional[Settings] = None,
             xindex = CrossChunkIndex()
             w_override = C.chunk_byte_width(total)
         pool = ThreadPoolExecutor(max_workers=settings.resolved_threads())
+        hashing = HashThread(ArchiveHash(magic.hash_code), data) \
+            if magic.hash_code else None
     main = ops.main
 
     def finish_chunk(ci, chunk, tokens, job=None, stats=None):
@@ -380,9 +389,6 @@ def compress_stream(data, out: BinaryIO, settings: Optional[Settings] = None,
         written += _compress_chunk(
             out, chunk, ci == len(bounds) - 1, ctype, cfg, settings, pool,
             tokens, job, crypto, w_override, ops)
-        with stage("compress.hash", main):
-            if hasher is not None:
-                hasher.update(chunk)
         if stats is None:
             stats = job.stats if job is not None else {"chunk_bytes": csize}
         ops.chunk(dict(stats, chunk=ci), last=ci == len(bounds) - 1)
@@ -392,15 +398,14 @@ def compress_stream(data, out: BinaryIO, settings: Optional[Settings] = None,
     try:
         if unlimited:
             written += _compress_unlimited(out, data, bounds, ctype, cfg,
-                                           settings, pool, crypto, hasher,
-                                           dev, ops)
+                                           settings, pool, crypto, dev, ops)
         elif mesh is not None:
             _compress_chunks_mesh(mesh, data, bounds, settings, finish_chunk,
                                   main)
         elif queued:
             # the lookahead: chunks k+1 and k+2 are queued on the device
             # (each job on its own stream and worker thread) while chunk
-            # k is packaged, hashed and written
+            # k is packaged and written
             def queue(ci):
                 p0, csize = bounds[ci]
                 with stage("compress.queue", main):
@@ -418,17 +423,22 @@ def compress_stream(data, out: BinaryIO, settings: Optional[Settings] = None,
                     chunk = np.asarray(data[p0:p0 + csize])
                     tokens = encode(chunk)
                 finish_chunk(ci, chunk, tokens)
+        with stage("compress.hash_wait", ops.op_ms):
+            if hashing is not None:
+                hashing.wait()
     finally:
         with stage("compress.setup", ops.op_ms):
+            if hashing is not None:
+                hashing.stop()
             pool.shutdown()
     with stage("compress.hash", ops.op_ms):
-        if hasher is not None:
-            digest = hasher.digest()
+        if hashing is not None:
+            digest = hashing.hasher.digest()
             if crypto is not None:
                 digest = crypto.encrypt_block(digest, crypto.salt_pass)
             out.write(digest)
             written += len(digest)
-    ops.close()
+    ops.close(hash_ms=hashing.busy_ms if hashing is not None else 0.0)
     return written
 
 
@@ -469,7 +479,7 @@ def _compress_chunks_mesh(mesh, data: np.ndarray, bounds, settings: Settings,
 
 def _compress_unlimited(out: BinaryIO, data: np.ndarray, bounds, ctype: int,
                         cfg: BackendConfig, settings: Settings,
-                        pool: ThreadPoolExecutor, crypto, hasher,
+                        pool: ThreadPoolExecutor, crypto,
                         dev: Optional[torch.device], ops: OpStats) -> int:
     """-U over several windows: ONE rzip chunk spanning the whole file,
     built from window passes (the memory-bounded analogue of the
@@ -547,9 +557,6 @@ def _compress_unlimited(out: BinaryIO, data: np.ndarray, bounds, ctype: int,
             add_literals(rzip_host.literals_of(chunk, k, ln))
         with stage("compress.crc", main):
             crc = zlib.crc32(chunk, crc)
-        with stage("compress.hash", main):
-            if hasher is not None:
-                hasher.update(chunk)
         ops.chunk(dict(job.stats if job is not None
                        else {"chunk_bytes": csize}, chunk=ci),
                   last=ci == len(bounds) - 1)

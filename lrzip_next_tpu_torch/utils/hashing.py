@@ -10,8 +10,9 @@ reference src/rzip.c:745 + put_u32 at src/rzip.c:190-194).
 from __future__ import annotations
 
 import hashlib
+import threading
+import time
 import zlib
-from typing import Optional
 
 from ..format.constants import HASH_LEN, HASH_NAME
 
@@ -78,6 +79,54 @@ class ArchiveHash:
         if self._xof:
             return self._h.digest(self._xof_len)
         return self._h.digest()
+
+
+# The slice the hash thread hands ``ArchiveHash.update`` at a time: large
+# enough that hashlib releases the GIL over nearly all of it, small enough
+# that a stop request waits for at most one slice.
+HASH_SLICE = 64 << 20
+
+HASH_THREAD_NAME = "lrzt-archive-hash"
+
+
+class HashThread:
+    """``hasher.update`` over the whole of ``data`` (a uint8 array), in
+    order, in ``HASH_SLICE`` slices, on a thread of its own that starts
+    at construction.
+
+    ``wait()`` joins it and re-raises its error; ``stop()`` asks it to
+    end after the slice it is hashing and joins it.  ``busy_ms`` is the
+    thread's milliseconds from its start to its end."""
+
+    def __init__(self, hasher: ArchiveHash, data) -> None:
+        self.hasher = hasher
+        self.busy_ms = 0.0
+        self._error = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, args=(data,),
+                                        name=HASH_THREAD_NAME)
+        self._thread.start()
+
+    def _run(self, data) -> None:
+        t0 = time.perf_counter()
+        try:
+            for p in range(0, len(data), HASH_SLICE):
+                if self._stop.is_set():
+                    return
+                self.hasher.update(data[p:p + HASH_SLICE])
+        except BaseException as e:  # re-raised on the caller's thread
+            self._error = e
+        finally:
+            self.busy_ms = (time.perf_counter() - t0) * 1e3
+
+    def wait(self) -> None:
+        self._thread.join()
+        if self._error is not None:
+            raise self._error
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join()
 
 
 def crc32_of(data) -> int:

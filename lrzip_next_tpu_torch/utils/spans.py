@@ -86,7 +86,8 @@ class OpStats:
     hands the sink a chunk's dict: ``stats``, ``op``, ``backend_ms`` and
     the stages as ``main_ms``.  ``op_ms`` gathers the operation's own
     stages (set-up, the final digest, the join): the last chunk's dict
-    (``last=True``) waits for them until ``close()``, so the ``main_ms``
+    (``last=True``) waits for them, and for the operation's own counters
+    (``close(hash_ms=...)``), until ``close()``, so the ``main_ms``
     values of an operation sum to its calling thread's time in its
     stages.  Without a sink ``main``, ``op_ms`` and ``pool_times()`` are
     None and nothing is kept."""
@@ -119,9 +120,10 @@ class OpStats:
         else:
             self.sink(stats)
 
-    def close(self) -> None:
+    def close(self, **counters) -> None:
         if self._last is None:
             return
+        self._last.update(counters)
         self._last["backend_ms"] += self._backend_ms
         ms = self._last["main_ms"]
         for acc in (self.main, self.op_ms):

@@ -7,7 +7,11 @@ is missing.  Archives must be byte-identical, and each package decodes
 the other's."""
 
 import dataclasses
+import hashlib
 import io
+import os
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -249,6 +253,130 @@ def test_encode_tokens_hook(data, monkeypatch, device, kw):
     assert buf.getvalue() == jbuf.getvalue()
     assert _chunks(buf.getvalue()) == 3
     assert lrz.decompress(buf.getvalue(), js) == data
+
+
+# --- the archive hash on its own thread --------------------------------------
+
+# hashlib's digest of the input by hash code (magic byte 14): the name and,
+# for the SHAKE codes, the digest length
+_HASHLIB = {1: ("md5", None), 2: ("ripemd160", None), 3: ("sha256", None),
+            4: ("sha384", None), 5: ("sha512", None), 6: ("sha3_256", None),
+            7: ("sha3_512", None), 8: ("shake_128", 16),
+            9: ("shake_128", 32), 10: ("shake_128", 64),
+            11: ("shake_256", 16), 12: ("shake_256", 32),
+            13: ("shake_256", 64)}
+
+# each compress path, as (device, settings, how the port is called)
+_HASH_PATHS = {
+    "one_chunk": ("cpu", {"method": "gzip"}, "compress"),
+    "lookahead": ("cpu", {"method": "gzip", "max_chunk": 50_000},
+                  "compress"),
+    "unlimited": ("cpu", {"method": "gzip", "max_chunk": 50_000,
+                          "unlimited": True}, "compress"),
+    "host_matcher": (None, {"method": "gzip", "max_chunk": 50_000},
+                     "compress"),
+    "encode_tokens": ("cpu", {"method": "gzip", "max_chunk": 50_000},
+                      "encode_tokens"),
+    "encrypted": ("cpu", {"method": "gzip", "max_chunk": 50_000,
+                          "passphrase": b"pw", "costfactor_exp": 10},
+                  "compress"),
+    "compress_file": ("cpu", {"method": "gzip", "max_chunk": 50_000},
+                      "compress_file"),
+}
+
+
+def _urandom_from(seed: int):
+    """A stand-in for ``os.urandom`` that repeats its bytes for a seed, so
+    two encrypted archives of one input can be compared byte for byte."""
+    rng = np.random.default_rng(seed)
+    return lambda n: rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+
+@pytest.mark.parametrize("path", sorted(_HASH_PATHS))
+@pytest.mark.parametrize("code", range(14))
+def test_archive_hash_from_its_thread(data, path, code, monkeypatch,
+                                      tmp_path):
+    """Every compress path hashes the whole input on the hash thread: the
+    stored digest (decrypted where the archive is encrypted) is hashlib's
+    digest of the input, code 0 writes none, and the archive is the JAX
+    package's byte for byte."""
+    from lrzip_next_tpu_torch.format.constants import HASH_NAME
+    from lrzip_next_tpu_torch.models.info import get_fileinfo
+
+    data = data[:150_000]
+    device, kw, call = _HASH_PATHS[path]
+    js = lrz.Settings(use_tpu=device is not None, use_mesh=False,
+                      hash_name=HASH_NAME[code], **kw)
+    ps = lrzt.settings_from_reference(js)
+    hook = _literal_tokens if call == "encode_tokens" else None
+    monkeypatch.setattr(os, "urandom", _urandom_from(code))
+    if call == "compress_file":
+        src, dst = tmp_path / "in.bin", tmp_path / "out.lrz"
+        src.write_bytes(data)
+        lrzt.compress_file(str(src), str(dst), ps, device=device)
+        ours = dst.read_bytes()
+    else:
+        buf = io.BytesIO()
+        lrzt.compress_stream(data, buf, ps, device=device,
+                             encode_tokens=hook)
+        ours = buf.getvalue()
+    monkeypatch.setattr(os, "urandom", _urandom_from(code))
+    jbuf = io.BytesIO()
+    JP.compress_stream(data, jbuf, js, encode_tokens=hook)
+    assert ours == jbuf.getvalue()
+
+    fd = io.BytesIO(ours)
+    info = get_fileinfo(fd, passphrase=js.passphrase)
+    assert fd.tell() == len(ours)      # the archive ends at its digest
+    if code == 0:
+        assert info.stored_hash == b""
+    else:
+        name, xof = _HASHLIB[code]
+        h = hashlib.new(name, data)
+        assert info.stored_hash == (h.digest(xof) if xof else h.digest())
+    assert lrzt.decompress(ours, ps, device=device) == data
+
+
+@pytest.mark.parametrize("fault", ["encoder", "hasher"])
+def test_error_leaves_no_hash_thread(data, monkeypatch, fault):
+    """An error in the chunk loop (the encoder fails on chunk 1 of 3) or
+    on the hash thread reaches the caller of ``compress_stream``, and no
+    hash thread outlives the call: after a chunk-loop error it stops
+    after the slice it is hashing."""
+    from lrzip_next_tpu_torch.utils import hashing
+
+    slices = []
+    update = hashing.ArchiveHash.update
+
+    def slow_update(self, part):
+        if fault == "hasher" and slices:
+            raise OSError("input unreadable")
+        slices.append(len(part))
+        time.sleep(0.002)
+        update(self, part)
+
+    monkeypatch.setattr(hashing, "HASH_SLICE", 1_000)
+    monkeypatch.setattr(hashing.ArchiveHash, "update", slow_update)
+    calls = []
+
+    def encoder(chunk):
+        calls.append(len(chunk))
+        if fault == "encoder" and len(calls) == 2:
+            raise RuntimeError("encoder failed on chunk 1")
+        return _literal_tokens(chunk)
+
+    with pytest.raises((RuntimeError, OSError),
+                       match="chunk 1" if fault == "encoder"
+                       else "unreadable"):
+        lrzt.compress_stream(data, io.BytesIO(),
+                             lrzt.Settings(method="gzip", max_chunk=150_000),
+                             device="cpu", encode_tokens=encoder)
+    assert not [t for t in threading.enumerate()
+                if t.name == hashing.HASH_THREAD_NAME]
+    if fault == "encoder":
+        assert len(calls) == 2 and sum(slices) < len(data)
+    else:
+        assert len(calls) == 3 and slices == [1_000]
 
 
 # --- MatchJob: the worker, dev= ----------------------------------------------

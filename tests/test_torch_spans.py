@@ -20,7 +20,7 @@ from portbench.core.readings import stage_ms_per_gib
 
 COMPRESS_STAGES = {"compress." + s for s in (
     "setup", "queue", "match_wait", "host_match", "cross", "literal_encode",
-    "crc_wait", "tokens", "backend_wait", "write", "hash")}
+    "crc_wait", "tokens", "backend_wait", "write", "hash", "hash_wait")}
 DECOMPRESS_STAGES = {"decompress." + s for s in (
     "setup", "read", "backend_wait", "parse", "flatten", "replay_launch",
     "readback_wait", "host_replay", "crc", "history", "hash", "join")}
@@ -86,14 +86,19 @@ def test_sink_dicts_carry_the_stages_and_the_pool_time(data, method):
     keys = set().union(*(s["main_ms"] for s in comp))
     assert keys <= COMPRESS_STAGES
     want = {"setup", "queue", "match_wait", "crc_wait", "tokens",
-            "backend_wait", "write", "hash"}
+            "backend_wait", "write", "hash", "hash_wait"}
     if method == "rans":
         want.add("literal_encode")
     assert {"compress." + s for s in want} <= keys
     assert all(s["backend_ms"] > 0 for s in comp)
-    # the operation's own stages land in its last chunk's dict
-    assert [("compress.setup" in s["main_ms"]) for s in comp] == \
-        [False, False, True]
+    # the operation's own stages land in its last chunk's dict: the
+    # archive hash runs on its own thread, so the calling thread's wait
+    # for it and the digest's write are the operation's, and the last
+    # dict carries the hash thread's busy time
+    for name in ("compress.setup", "compress.hash", "compress.hash_wait"):
+        assert [(name in s["main_ms"]) for s in comp] == [False, False, True]
+    assert [("hash_ms" in s) for s in comp] == [False, False, True]
+    assert comp[-1]["hash_ms"] > 0
     assert [("decompress.join" in s["main_ms"]) for s in dec] == \
         [False, False, True]
 
