@@ -39,6 +39,10 @@ _GEAR = np.random.default_rng(0x6EA12).integers(
 
 WINDOW = 32  # fingerprint window at anchors (tree hash, same as matcher)
 
+# the counters ``find_cross_matches`` gives a chunk (a -U window)
+COUNTERS = ("cross_anchors", "cross_hits", "cross_matches", "cross_bytes",
+            "cross_left_bytes")
+
 
 def gear_anchor_positions(data: np.ndarray, mask_bits: int = 10
                           ) -> np.ndarray:
@@ -107,12 +111,19 @@ class CrossChunkIndex:
             self._sorted_p = p[order]
         return self._sorted_h is not None
 
-    def lookup(self, data: np.ndarray, abs_base: int
+    def lookup(self, data: np.ndarray, abs_base: int,
+               counts: Optional[dict] = None
                ) -> Tuple[np.ndarray, np.ndarray]:
-        """(cur_abs, src_abs) candidate pairs for the chunk's anchors."""
+        """(cur_abs, src_abs) candidate pairs for the chunk's anchors;
+        ``counts["cross_anchors"]`` takes the number of anchors looked up
+        (0 while the index is empty)."""
+        if counts is not None:
+            counts["cross_anchors"] = 0
         if not self._ensure_sorted():
             return (np.zeros(0, np.int64),) * 2
         pos = gear_anchor_positions(data, self.mask_bits)
+        if counts is not None:
+            counts["cross_anchors"] = len(pos)
         if len(pos) == 0:
             return (np.zeros(0, np.int64),) * 2
         h = window_hashes_at(data, pos)
@@ -123,17 +134,22 @@ class CrossChunkIndex:
 
 
 def find_cross_matches(full_data: np.ndarray, index: CrossChunkIndex,
-                       chunk_base: int, chunk_len: int,
-                       max_dist: int) -> List[Tuple[int, int, int]]:
+                       chunk_base: int, chunk_len: int, max_dist: int,
+                       counts: Optional[dict] = None
+                       ) -> List[Tuple[int, int, int]]:
     """Verified, extended cross-chunk matches for one chunk.
 
     Returns (start_abs, length, dist) triples sorted by start, pruned of
-    overlaps (greedy left-to-right).
+    overlaps (greedy left-to-right).  Where ``counts`` is a dict it takes
+    the chunk's counters (``COUNTERS``): the anchors looked up, the
+    candidate hits, the matches kept, the bytes they cover, and the bytes
+    the left extension stepped over, every candidate that reached it.
     """
     chunk = full_data[chunk_base:chunk_base + chunk_len]
-    cur, src = index.lookup(chunk, chunk_base)
+    cur, src = index.lookup(chunk, chunk_base, counts)
     out: List[Tuple[int, int, int]] = []
     frontier = chunk_base
+    left = 0
     from .rzip_host import extend_one
     for c, s in zip(cur.tolist(), src.tolist()):
         if c < frontier or s >= c:
@@ -148,12 +164,17 @@ def find_cross_matches(full_data: np.ndarray, index: CrossChunkIndex,
                 start - 1 - dist >= 0 and \
                 full_data[start - 1] == full_data[start - 1 - dist]:
             start -= 1
+        left += c - start
         ml = extend_one(full_data, start - dist, start)
         end = min(start + ml, chunk_base + chunk_len)
         if end - start < MINIMUM_MATCH:
             continue
         out.append((start, end - start, dist))
         frontier = end
+    if counts is not None:
+        counts.update(cross_hits=len(cur), cross_matches=len(out),
+                      cross_bytes=sum(m[1] for m in out),
+                      cross_left_bytes=left)
     return out
 
 

@@ -380,18 +380,17 @@ def compress_stream(data, out: BinaryIO, settings: Optional[Settings] = None,
         stats sink."""
         nonlocal written
         p0, csize = bounds[ci]
+        counts = {}
         if xindex is not None:
-            with stage("compress.cross", main):
-                max_dist = (1 << (8 * w_override)) - 1
-                cross = find_cross_matches(data, xindex, p0, csize, max_dist)
-                tokens = splice_cross_matches(*tokens, cross, p0)
-                xindex.add_chunk(chunk, p0)
+            tokens = _cross_window(data, xindex, p0, chunk, tokens,
+                                   (1 << (8 * w_override)) - 1, counts, main)
         written += _compress_chunk(
             out, chunk, ci == len(bounds) - 1, ctype, cfg, settings, pool,
             tokens, job, crypto, w_override, ops)
         if stats is None:
             stats = job.stats if job is not None else {"chunk_bytes": csize}
-        ops.chunk(dict(stats, chunk=ci), last=ci == len(bounds) - 1)
+        ops.chunk(dict(stats, chunk=ci, **counts),
+                  last=ci == len(bounds) - 1)
         if settings.progress:
             settings.progress("rzip", p0 + csize, total)
 
@@ -477,6 +476,23 @@ def _compress_chunks_mesh(mesh, data: np.ndarray, bounds, settings: Settings,
             finish_chunk(ci, job.data, tokens, job, batch.stats[j])
 
 
+def _cross_window(data: np.ndarray, xindex: CrossChunkIndex, p0: int,
+                  chunk: np.ndarray, tokens, max_dist: int, counts: dict,
+                  main: Optional[dict]):
+    """The window's tokens with its matches into the earlier windows
+    spliced in (``compress.cross_find``: the index lookup, the verify and
+    extend, the splice), then the window added to the index
+    (``compress.cross_index``); ``counts`` takes
+    ``crosschunk.COUNTERS``."""
+    with stage("compress.cross_find", main):
+        cross = find_cross_matches(data, xindex, p0, len(chunk), max_dist,
+                                   counts)
+        tokens = splice_cross_matches(*tokens, cross, p0)
+    with stage("compress.cross_index", main):
+        xindex.add_chunk(chunk, p0)
+    return tokens
+
+
 def _compress_unlimited(out: BinaryIO, data: np.ndarray, bounds, ctype: int,
                         cfg: BackendConfig, settings: Settings,
                         pool: ThreadPoolExecutor, crypto,
@@ -491,7 +507,8 @@ def _compress_unlimited(out: BinaryIO, data: np.ndarray, bounds, ctype: int,
     against every earlier window through the host cross-window index
     (``models/crosschunk.py``); the spliced token streams concatenate
     into one whole-file stream.  The literals go through the host codecs,
-    flushed to blocks as they accumulate.  ``ops`` takes a dict a window
+    flushed to blocks as they accumulate.  ``ops`` takes a dict a window,
+    with the counters of its cross-window matches (``_cross_window``),
     and the stages; the CRC runs on the calling thread
     (``compress.crc``)."""
     total = len(data)
@@ -545,10 +562,9 @@ def _compress_unlimited(out: BinaryIO, data: np.ndarray, bounds, ctype: int,
         else:
             with stage("compress.host_match", main):
                 tokens = rzip_host.rzip_encode_chunk(chunk)
-        with stage("compress.cross", main):
-            cross = find_cross_matches(data, xindex, p0, csize, max_dist)
-            tokens = splice_cross_matches(*tokens, cross, p0)
-            xindex.add_chunk(chunk, p0)
+        counts = {}
+        tokens = _cross_window(data, xindex, p0, chunk, tokens, max_dist,
+                               counts, main)
         with stage("compress.tokens", main):
             k, ln, d = split_long_runs(*tokens)
             all_k.append(k)
@@ -558,7 +574,7 @@ def _compress_unlimited(out: BinaryIO, data: np.ndarray, bounds, ctype: int,
         with stage("compress.crc", main):
             crc = zlib.crc32(chunk, crc)
         ops.chunk(dict(job.stats if job is not None
-                       else {"chunk_bytes": csize}, chunk=ci),
+                       else {"chunk_bytes": csize}, chunk=ci, **counts),
                   last=ci == len(bounds) - 1)
         if settings.progress:
             settings.progress("rzip", p0 + csize, total)

@@ -130,7 +130,7 @@ def test_lookahead_progress_in_order(data):
 # --- -U over several windows -------------------------------------------------
 
 
-@pytest.mark.parametrize("method", ["gzip", "rans", "none"])
+@pytest.mark.parametrize("method", ["gzip", "rans", "none", "lzma"])
 def test_unlimited_archives_match(data, method):
     """One whole-file chunk from device-matched windows; the literals take
     the host codecs."""
@@ -145,6 +145,44 @@ def test_unlimited_archives_match(data, method):
     assert [s["chunk"] for s in stats] == list(range(5))
     assert lrz.decompress(ours, js) == data
     assert lrzt.decompress(ours, device="cpu") == data
+
+
+def test_unlimited_kernel_trees_archive():
+    """The ``-U`` cell's shape at six 100 KiB trees (``portbench``'s
+    ``kernel_trees``) in windows of 2/3 of a tree, lzma: one whole-file
+    chunk, the JAX package's bytes, decoded by the plain reference; the
+    cross-window index covers most of trees 2-6, and the first window,
+    with no earlier window, counts nothing."""
+    import json
+    from pathlib import Path
+    from lrzip_next_tpu_torch.models import crosschunk
+    from portbench.corpus import kernel_trees
+    from portbench.reference import lrz as ref
+    root = Path(__file__).resolve().parents[1]
+    p = json.loads((root / "portbench" / "traffic" / "kernel-trees.json")
+                   .read_text())["params"]
+    tb = 100 << 10
+    # members of at most 16 KiB, so that a tree holds a dozen or more
+    # (at the traffic's 1 MiB cap one member can fill a small tree)
+    p.update(tree_bytes=tb, copy_window=tb, file_max=16 << 10)
+    data = kernel_trees.generate(p, 2**33 + 21, 0, "cpu").tobytes()
+    stats = []
+    js = lrz.Settings(use_tpu=True, use_mesh=False, method="lzma",
+                      unlimited=True, max_chunk=tb * 2 // 3)
+    ours = lrzt.compress(data, dataclasses.replace(
+        lrzt.settings_from_reference(js), stats_sink=stats.append),
+        device="cpu")
+    assert _chunks(ours) == 1
+    assert ours == lrz.compress(data, js)
+    assert ref.decode(ours) == data
+    assert len(stats) == 10 and [s["chunk"] for s in stats] == \
+        list(range(10))
+    assert all(set(crosschunk.COUNTERS) <= set(s) for s in stats)
+    assert all(stats[0][k] == 0 for k in crosschunk.COUNTERS)
+    assert sum(s["cross_bytes"] for s in stats) >= len(data) // 2, \
+        [s["cross_bytes"] for s in stats]
+    assert all(s["cross_hits"] <= s["cross_anchors"] and
+               s["cross_matches"] <= s["cross_hits"] for s in stats)
 
 
 def test_unlimited_host_matcher_matches(data):

@@ -19,8 +19,9 @@ from lrzip_next_tpu_torch.utils import spans
 from portbench.core.readings import stage_ms_per_gib
 
 COMPRESS_STAGES = {"compress." + s for s in (
-    "setup", "queue", "match_wait", "host_match", "cross", "literal_encode",
-    "crc_wait", "tokens", "backend_wait", "write", "hash", "hash_wait")}
+    "setup", "queue", "match_wait", "host_match", "cross_find", "cross_index",
+    "literal_encode", "crc_wait", "tokens", "backend_wait", "write", "hash",
+    "hash_wait")}
 DECOMPRESS_STAGES = {"decompress." + s for s in (
     "setup", "read", "backend_wait", "parse", "flatten", "replay_launch",
     "readback_wait", "host_replay", "crc", "history", "hash", "join")}
