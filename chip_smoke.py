@@ -28,7 +28,12 @@ Phases, in order; any failure exits nonzero before the last line:
    the 64 MiB long-range chunk and of the 64 MiB pasted-pieces chunk hands
    them (each also with its own device time), and the pasted-pieces
    chunk's whole layered replay (``replay_pieces_layered``, median of 5);
-   K9 (compact_masked) on the run masks of the chunk's dense candidates.
+   K9 (compact_masked) on the run masks of the chunk's dense candidates;
+   K11 (gear_anchors, the cross-window index's scan) on an 8 MiB and a
+   64 MiB window of the long-range corpus in their padded buckets, against
+   the host pair ``gear_anchor_positions`` + ``window_hashes_at`` (its
+   numpy counterpart, timed) and its plain version, with its device time
+   and the time of the scan with its read-back (``read_anchors``).
    Beside each kernel's time stand its bound (see ``bound``) and, where
    one PyTorch call computes the same function, that call's time and the
    ratio.  K2, K9, K10, K3 and K6 also run under ``torch.profiler``: at
@@ -68,7 +73,8 @@ Phases, in order; any failure exits nonzero before the last line:
    replay); the seconds per 64 MiB of a warm compress in one 64 MiB chunk
    and in four (median of 3; the lookahead's overlap, reported and not
    gated); ``-U`` (gzip) over four 32 MiB windows of its first 128 MiB
-   (K1 four times, K10 eight, no K3-K6), round trip; and ``--no-tpu -g``
+   (K1 four times, K10 eight, K11 four, ``cross_scan_card`` 1 on every
+   window, no K3-K6), round trip; and ``--no-tpu -g``
    on a 16 MiB word soup (the host matcher: no launch), round trip;
 6. mesh: the multi-device path (``parallel/``) on this card, on the same
    256 MiB corpus: ``use_mesh=True`` with one card writes the
@@ -598,6 +604,61 @@ def check_k10(data: np.ndarray, label: str) -> dict:
     return res
 
 
+def check_k11(data: np.ndarray, label: str) -> dict:
+    """K11 on one window in its padded bucket: the same anchors,
+    fingerprints and order as the host pair (``gear_anchor_positions`` +
+    ``window_hashes_at``, the JAX package's numpy scan, timed once on the
+    host clock) and as its plain version; its times, device time and
+    bound; and the scan with its read-back, as the pipeline runs it."""
+    from lrzip_next_tpu_torch.models import crosschunk as X
+    from lrzip_next_tpu_torch.ops import gearscan as G
+    padded = padded_on_card(data)
+    n = len(data)
+    t0 = time.perf_counter()
+    want = X.gear_anchor_positions(data)
+    want = (want, X.window_hashes_at(data, want))
+    host_pair_ms = (time.perf_counter() - t0) * 1e3
+    k = len(want[0])
+
+    def same(a, b):
+        require(int(a[2]) == int(b[2]) == k,
+                f"K11 count {int(a[2])} != plain {int(b[2])} != host {k} "
+                f"at {label}")
+        return max(max_err(x[:k], y[:k]) for x, y in zip(a[:2], b[:2]))
+
+    def kernel():
+        return G.gear_anchors(padded, n, X._GEAR, 10)
+
+    def scan_and_read():
+        return G.read_anchors(*kernel())
+
+    # bytes: the window once, an int32 position and a 64-bit fingerprint
+    # an anchor, the count; operations a position: two table look-ups,
+    # shift, add, subtract, mask and compare; 206 multiply-adds an anchor
+    bnd = bound(n + 12 * k + 4, 7 * n + 206 * k)
+    r = timed_pair("K11 gear_anchors", f"{label}: n={n} anchors={k}",
+                   kernel, lambda: G.gear_anchors_reference(
+                       padded, n, X._GEAR, 10), same, bnd)
+    r.pop("out")
+    got = scan_and_read()
+    require(all(np.array_equal(x, y) for x, y in zip(got, want)),
+            f"K11 read back differs from the host pair at {label}")
+    r["device_ms"] = one_pass_device(kernel, f"K11 {label}",
+                                     kernel="gear_anchors_kernel")
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scan_and_read()
+        times.append((time.perf_counter() - t0) * 1e3)
+    r["read_ms"] = statistics.median(times)
+    r["host_pair_ms"] = host_pair_ms
+    log(f"  K11 {label}: bound / device {bnd['bound_ms'] / r['device_ms']:.4f}"
+        f"; scan and read-back {r['read_ms']:.4f} ms (host clock, median of "
+        f"5) against the host pair {host_pair_ms:.1f} ms")
+    return r
+
+
 def skewed_symbols(total: int) -> np.ndarray:
     """Seeded i.i.d. bytes of a Zipf-like law: no long repeats, so every
     byte is a literal, and rANS-compressible."""
@@ -1008,6 +1069,9 @@ def phase_kernels(corpus64: np.ndarray, pasted64: np.ndarray) -> dict:
     torch.cuda.empty_cache()
     res["k10"] = check_k10(corpus64, "64 MiB stride 8")
     torch.cuda.empty_cache()
+    check_k11(corpus64, "64 MiB window")
+    res["k11"] = check_k11(corpus64[:8 * MIB], "8 MiB window")
+    torch.cuda.empty_cache()
     big = long_range_corpus(256 * MIB)
     check_k1(big, "256 MiB")
     check_k2(big, "256 MiB")
@@ -1017,11 +1081,11 @@ def phase_kernels(corpus64: np.ndarray, pasted64: np.ndarray) -> dict:
 
 
 def zero_launches() -> None:
-    from lrzip_next_tpu_torch.ops import anchor, compact
+    from lrzip_next_tpu_torch.ops import anchor, compact, gearscan
     from lrzip_next_tpu_torch.ops import rans_kernels as RK
     from lrzip_next_tpu_torch.ops import streampack as SP
     from lrzip_next_tpu_torch.ops import replay_ragged as RR
-    anchor.launches = compact.launches = 0
+    anchor.launches = compact.launches = gearscan.launches = 0
     compact.masked_launches = compact.starts_launches = 0
     RK.hist_launches = RK.encode_launches = RK.decode_launches = 0
     SP.stream_launches = SP.plane_launches = 0
@@ -1029,7 +1093,7 @@ def zero_launches() -> None:
 
 
 def read_launches() -> dict:
-    from lrzip_next_tpu_torch.ops import anchor, compact
+    from lrzip_next_tpu_torch.ops import anchor, compact, gearscan
     from lrzip_next_tpu_torch.ops import rans_kernels as RK
     from lrzip_next_tpu_torch.ops import streampack as SP
     from lrzip_next_tpu_torch.ops import replay_ragged as RR
@@ -1038,7 +1102,8 @@ def read_launches() -> dict:
             "k5": RK.encode_launches, "k6": SP.plane_launches,
             "k7": RK.decode_launches, "k8a": RR.ragged_launches,
             "k8b": RR.layered_launches, "k8c": RR.small_launches,
-            "k9": compact.masked_launches, "k10": compact.starts_launches}
+            "k9": compact.masked_launches, "k10": compact.starts_launches,
+            "k11": gearscan.launches}
 
 
 # K2 is on no path: the chain stage compacts with K10
@@ -1522,12 +1587,13 @@ def standalone_tokens(chunk: np.ndarray):
         matcher._worker_pool, matcher._job_stream = pool, stream
 
 
-def phase_multichunk(big: np.ndarray, soup: bytes) -> None:
+def phase_multichunk(big: np.ndarray, soup: bytes) -> int:
     """The multi-chunk compress path the command line runs: a 256 MiB
     file in three chunks through ``cli.main`` (rans, ``-m 1``: 100, 100
     and 56 MiB), its decompress, the lookahead's tokens against
     standalone jobs, the overlap (reported, not gated), ``-U`` over four
-    32 MiB windows, and the host matcher (``--no-tpu``)."""
+    32 MiB windows, and the host matcher (``--no-tpu``).  Returns K11's
+    launches in the ``-U`` step."""
     import lrzip_next_tpu_torch as lrzt
     from lrzip_next_tpu_torch.models import pipeline as P
     from lrzip_next_tpu_torch.ops import matcher
@@ -1620,25 +1686,32 @@ def phase_multichunk(big: np.ndarray, soup: bytes) -> None:
     del raw
     raw = big[:128 * MIB].tobytes()
     zero_launches()
+    u_stats = []
     settings = lrzt.Settings(method="gzip", unlimited=True,
-                             max_chunk=32 * MIB)
+                             max_chunk=32 * MIB, stats_sink=u_stats.append)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     u_arc = lrzt.compress(raw, settings, device="cuda")
     u_secs = time.perf_counter() - t0
     u = read_launches()
-    require(u["k1"] == 4 and u["k10"] == 8
+    require(u["k1"] == 4 and u["k10"] == 8 and u["k11"] == 4
             and not any(u[k] for k in LITERAL_KERNELS + DECODE_KERNELS
                         + DENSE_KERNELS),
-            f"-U over four windows launched {u}, not K1 four times and "
-            f"K10 eight")
+            f"-U over four windows launched {u}, not K1 four times, K10 "
+            f"eight and K11 four")
+    require([s.get("cross_scan_card") for s in u_stats] == [1] * 4,
+            f"-U did not scan every window on the card: "
+            f"{[s.get('cross_scan_card') for s in u_stats]}")
     t0 = time.perf_counter()
     require(lrzt.decompress(u_arc, device="cuda") == raw,
             "the -U archive does not decode to the input")
     log(f"multichunk -U gzip, 128 MiB in four 32 MiB windows: "
         f"{len(u_arc)} bytes, ratio {len(raw) / len(u_arc):.4f}, compress "
         f"{u_secs:.3f} s, decompress {time.perf_counter() - t0:.3f} s, "
-        f"launches {u}")
+        f"launches {u}; cross_find + cross_index ms a window " +
+        ", ".join(f"{s['main_ms'].get('compress.cross_find', 0.0):.1f} + "
+                  f"{s['main_ms'].get('compress.cross_index', 0.0):.1f}"
+                  for s in u_stats))
     del u_arc, raw
 
     s_src, s_arc, s_back = (work / "soup.bin", work / "soup.bin.lrz",
@@ -1658,6 +1731,7 @@ def phase_multichunk(big: np.ndarray, soup: bytes) -> None:
         f"decompress {d_secs:.3f} s, no kernel launched")
     for p in (s_src, s_arc, s_back):
         p.unlink()
+    return u["k11"]
 
 
 _DIST_WORKER = r"""
@@ -2177,7 +2251,8 @@ def main() -> int:
     del corpus64, pasted64
     torch.cuda.empty_cache()
     big = long_range_corpus(256 * MIB)
-    phase_multichunk(big, word_soup_with_holes(16 * MIB).tobytes())
+    launches["k11"] = phase_multichunk(
+        big, word_soup_with_holes(16 * MIB).tobytes())
     phase_mesh(big)
     phase_mesh_sp(big)
     del big
@@ -2210,6 +2285,9 @@ def main() -> int:
          "lrzip_next_tpu/ops/compact_pallas.py:177", "k9"),
         ("compact_starts", "lrzip_next_tpu_torch/ops/csrc/compact3.cu",
          "lrzip_next_tpu/ops/compact_pallas.py:291", "k10"),
+        ("gear_anchors", "lrzip_next_tpu_torch/ops/csrc/gear_anchors.cu",
+         "lrzip_next_tpu/models/crosschunk.py gear_anchor_positions + "
+         "window_hashes_at (numpy, no pallas_call)", "k11"),
     ]
     for r in kern.values():   # the profiler's device time, where measured
         if "device_ms" in r:

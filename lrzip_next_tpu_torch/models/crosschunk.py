@@ -28,11 +28,13 @@ cross_chunk off (the default) for reference-portable archives.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..format.constants import MINIMUM_MATCH
+from ..ops import gearscan
 
 _GEAR = np.random.default_rng(0x6EA12).integers(
     0, 1 << 63, 256, dtype=np.int64).astype(np.uint64)
@@ -59,7 +61,9 @@ def gear_anchor_positions(data: np.ndarray, mask_bits: int = 10
         mask = np.uint64((1 << mask_bits) - 1)
         sel = (g & mask) == mask
         sel[: 8] = False
-        sel[n - WINDOW:] = False
+        # a window shorter than WINDOW has no position with a whole
+        # window after it (n - WINDOW < 0 would clear only the tail)
+        sel[max(n - WINDOW, 0):] = False
         return np.flatnonzero(sel).astype(np.int64)
 
 
@@ -83,6 +87,24 @@ def window_hashes_at(data: np.ndarray, pos: np.ndarray) -> np.ndarray:
             | b[:, 0].astype(np.uint64)
 
 
+def anchor_set(data: np.ndarray, mask_bits: int = 10,
+               dev: Optional[torch.Tensor] = None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """The window's anchor set: its gear anchor positions, ascending, and
+    the fingerprint at each.  Where ``dev`` holds the window on a CUDA
+    card (its first ``len(data)`` bytes; the rest, padding, is not read),
+    K11 (``ops/gearscan.py``) scans it there in one launch, on that
+    card's current stream; else the host pair ``gear_anchor_positions`` and
+    ``window_hashes_at``.  Both give the same arrays."""
+    if dev is not None and dev.is_cuda:
+        # the C entry launches on the current device: the window's
+        with torch.cuda.device(dev.device):
+            return gearscan.read_anchors(
+                *gearscan.gear_anchors(dev, len(data), _GEAR, mask_bits))
+    pos = gear_anchor_positions(data, mask_bits)
+    return pos, window_hashes_at(data, pos)
+
+
 class CrossChunkIndex:
     """Persistent anchor index over previously compressed chunks."""
 
@@ -93,11 +115,15 @@ class CrossChunkIndex:
         self._sorted_h: Optional[np.ndarray] = None
         self._sorted_p: Optional[np.ndarray] = None
 
-    def add_chunk(self, data: np.ndarray, abs_base: int) -> None:
-        pos = gear_anchor_positions(data, self.mask_bits)
+    def add_chunk(self, data: np.ndarray, abs_base: int,
+                  anchors: Optional[Tuple[np.ndarray, np.ndarray]] = None
+                  ) -> None:
+        """Index the chunk's anchors (``anchors``: its ``anchor_set``,
+        computed from ``data`` where not given)."""
+        pos, h = anchors if anchors is not None \
+            else anchor_set(data, self.mask_bits)
         if len(pos) == 0:
             return
-        h = window_hashes_at(data, pos)
         self._hashes.append(h)
         self._positions.append(pos + abs_base)
         self._sorted_h = None  # invalidate
@@ -112,21 +138,23 @@ class CrossChunkIndex:
         return self._sorted_h is not None
 
     def lookup(self, data: np.ndarray, abs_base: int,
-               counts: Optional[dict] = None
+               counts: Optional[dict] = None,
+               anchors: Optional[Tuple[np.ndarray, np.ndarray]] = None
                ) -> Tuple[np.ndarray, np.ndarray]:
-        """(cur_abs, src_abs) candidate pairs for the chunk's anchors;
-        ``counts["cross_anchors"]`` takes the number of anchors looked up
-        (0 while the index is empty)."""
+        """(cur_abs, src_abs) candidate pairs for the chunk's anchors
+        (``anchors`` as for ``add_chunk``); ``counts["cross_anchors"]``
+        takes the number of anchors looked up (0 while the index is
+        empty)."""
         if counts is not None:
             counts["cross_anchors"] = 0
         if not self._ensure_sorted():
             return (np.zeros(0, np.int64),) * 2
-        pos = gear_anchor_positions(data, self.mask_bits)
+        pos, h = anchors if anchors is not None \
+            else anchor_set(data, self.mask_bits)
         if counts is not None:
             counts["cross_anchors"] = len(pos)
         if len(pos) == 0:
             return (np.zeros(0, np.int64),) * 2
-        h = window_hashes_at(data, pos)
         idx = np.searchsorted(self._sorted_h, h)
         idx = np.clip(idx, 0, len(self._sorted_h) - 1)
         hit = self._sorted_h[idx] == h
@@ -135,8 +163,9 @@ class CrossChunkIndex:
 
 def find_cross_matches(full_data: np.ndarray, index: CrossChunkIndex,
                        chunk_base: int, chunk_len: int, max_dist: int,
-                       counts: Optional[dict] = None
-                       ) -> List[Tuple[int, int, int]]:
+                       counts: Optional[dict] = None,
+                       anchors: Optional[Tuple[np.ndarray, np.ndarray]]
+                       = None) -> List[Tuple[int, int, int]]:
     """Verified, extended cross-chunk matches for one chunk.
 
     Returns (start_abs, length, dist) triples sorted by start, pruned of
@@ -144,9 +173,11 @@ def find_cross_matches(full_data: np.ndarray, index: CrossChunkIndex,
     the chunk's counters (``COUNTERS``): the anchors looked up, the
     candidate hits, the matches kept, the bytes they cover, and the bytes
     the left extension stepped over, every candidate that reached it.
+    ``anchors`` is the chunk's ``anchor_set``, computed here where not
+    given.
     """
     chunk = full_data[chunk_base:chunk_base + chunk_len]
-    cur, src = index.lookup(chunk, chunk_base, counts)
+    cur, src = index.lookup(chunk, chunk_base, counts, anchors)
     out: List[Tuple[int, int, int]] = []
     frontier = chunk_base
     left = 0

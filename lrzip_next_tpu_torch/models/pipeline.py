@@ -74,7 +74,7 @@ from ..utils.hashing import ArchiveHash, HashThread, stored_crc_int
 from ..utils.memplan import default_max_chunk
 from ..utils.spans import OpStats, stage, timed
 from . import rzip_host
-from .crosschunk import CrossChunkIndex, find_cross_matches, \
+from .crosschunk import CrossChunkIndex, anchor_set, find_cross_matches, \
     splice_cross_matches
 from .device_path import DeviceLiteralEncode, DeviceLitPlane, \
     replay_device
@@ -383,7 +383,8 @@ def compress_stream(data, out: BinaryIO, settings: Optional[Settings] = None,
         counts = {}
         if xindex is not None:
             tokens = _cross_window(data, xindex, p0, chunk, tokens,
-                                   (1 << (8 * w_override)) - 1, counts, main)
+                                   (1 << (8 * w_override)) - 1, counts, main,
+                                   job.dev if job is not None else None)
         written += _compress_chunk(
             out, chunk, ci == len(bounds) - 1, ctype, cfg, settings, pool,
             tokens, job, crypto, w_override, ops)
@@ -478,18 +479,25 @@ def _compress_chunks_mesh(mesh, data: np.ndarray, bounds, settings: Settings,
 
 def _cross_window(data: np.ndarray, xindex: CrossChunkIndex, p0: int,
                   chunk: np.ndarray, tokens, max_dist: int, counts: dict,
-                  main: Optional[dict]):
+                  main: Optional[dict], dev: Optional[torch.Tensor] = None):
     """The window's tokens with its matches into the earlier windows
-    spliced in (``compress.cross_find``: the index lookup, the verify and
-    extend, the splice), then the window added to the index
-    (``compress.cross_index``); ``counts`` takes
-    ``crosschunk.COUNTERS``."""
+    spliced in (``compress.cross_find``: the window's anchor set, the
+    index lookup, the verify and extend, the splice), then the window
+    added to the index (``compress.cross_index``); ``counts`` takes
+    ``crosschunk.COUNTERS`` and ``cross_scan_card``: 1 where K11 scanned
+    the window on the card (``dev``, the job's padded window, a CUDA
+    tensor; ``collect()`` made the current stream wait on the job's), 0
+    where the host did (no job, a trivial chunk, the CPU).  The one
+    anchor set serves the lookup and the index."""
+    on_card = dev is not None and dev.is_cuda
     with stage("compress.cross_find", main):
+        anchors = anchor_set(chunk, xindex.mask_bits, dev)
         cross = find_cross_matches(data, xindex, p0, len(chunk), max_dist,
-                                   counts)
+                                   counts, anchors)
         tokens = splice_cross_matches(*tokens, cross, p0)
     with stage("compress.cross_index", main):
-        xindex.add_chunk(chunk, p0)
+        xindex.add_chunk(chunk, p0, anchors)
+    counts["cross_scan_card"] = int(on_card)
     return tokens
 
 
@@ -558,13 +566,15 @@ def _compress_unlimited(out: BinaryIO, data: np.ndarray, bounds, ctype: int,
         if job is not None:
             with stage("compress.match_wait", main):
                 tokens = job.collect()
-            job.dev = None      # the literals are coded on the host
         else:
             with stage("compress.host_match", main):
                 tokens = rzip_host.rzip_encode_chunk(chunk)
         counts = {}
         tokens = _cross_window(data, xindex, p0, chunk, tokens, max_dist,
-                               counts, main)
+                               counts, main,
+                               job.dev if job is not None else None)
+        if job is not None:
+            job.dev = None      # the literals are coded on the host
         with stage("compress.tokens", main):
             k, ln, d = split_long_runs(*tokens)
             all_k.append(k)

@@ -53,6 +53,9 @@ _SIGNATURES = {
     "lrzt_replay_ragged": [_vp, _i64, _vp, _i64, _i64, _vp, _vp],
     "lrzt_replay_small": [_vp, _i64, _vp, _i64, _vp, _i64, _vp],
     "lrzt_replay_layered": [_vp, _i64, _vp, _i64, _vp],
+    "lrzt_gear_anchors": [_vp, _i64, _ci, _vp, _vp, _i64, _vp, _vp, _vp,
+                          _vp],
+    "lrzt_gear_anchors_slots": [_i64],
 }
 
 _lib = None

@@ -1,6 +1,7 @@
 // The decoupled look-back shared by the one-pass compactions: K2 and K10
-// (compact3.cu), K3 and K6 (streampack.cu), and K9 (compact_masked.cu),
-// which carries two counts a tile (look_back_pair).
+// (compact3.cu), K3 and K6 (streampack.cu), K9 (compact_masked.cu),
+// which carries two counts a tile (look_back_pair), and K11
+// (gear_anchors.cu).
 //
 // A one-pass compaction cuts its input into tiles, one block a tile, and
 // each block finds its tile's output offset itself (Merrill and Garland's

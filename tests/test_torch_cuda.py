@@ -24,6 +24,10 @@ from lrzip_next_tpu_torch.ops import rans_kernels as RK
 from lrzip_next_tpu_torch.ops import replay_ragged as RR
 from lrzip_next_tpu_torch.ops import streampack as SP
 from lrzip_next_tpu_torch.parallel import mesh as MESH
+from lrzip_next_tpu_torch.models import crosschunk as XC
+from lrzip_next_tpu_torch.ops import gearscan as GS
+from test_torch_gearscan import CASES as GEAR_CASES, _case as gear_case, \
+    _host_pair as gear_host_pair, _kernel_trees_window
 
 pytestmark = pytest.mark.cuda
 
@@ -2032,6 +2036,75 @@ def test_multichunk_compress_card_equals_cpu(cuda):
         assert on_card == lrzt.compress(data, s, device="cpu"), kw
         assert lrzt.decompress(on_card, device="cpu") == data
         assert lrzt.decompress(on_card, device="cuda") == data
+
+
+def _same_anchors(got, want) -> bool:
+    return all(x.dtype == y.dtype and np.array_equal(x, y)
+               for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("name", GEAR_CASES)
+def test_k11_kernel_equals_host_pair(cuda, name):
+    """K11's positions, fingerprints and order are the host pair's (and
+    its plain version's, on the card), on random bytes, text, a window of
+    kernel trees, one repeated byte (every position an anchor, or none),
+    fewer than 16 bytes, one position, a length not a multiple of 16, an
+    anchor at n - 33, and bytes past n that would make anchors."""
+    buf, n, bits = gear_case(name)
+    n = len(buf) if n is None else n
+    data = torch.from_numpy(buf.copy()).to(cuda)
+    before = GS.launches
+    got = GS.read_anchors(*GS.gear_anchors(data, n, XC._GEAR, bits))
+    torch.cuda.synchronize()
+    assert GS.launches == before + (n > 40)
+    assert _same_anchors(got, gear_host_pair(buf[:n], bits))
+    plain = GS.read_anchors(*GS.gear_anchors_reference(data, n, XC._GEAR,
+                                                       bits))
+    assert _same_anchors(got, plain)
+
+
+@pytest.mark.parametrize("offset", [0, 3])
+def test_k11_kernel_on_a_padded_cell_window(cuda, offset):
+    """An 8 MiB window of kernel trees in its zero-padded bucket, as the
+    matcher holds it, at an aligned address and at one 3 bytes on (the
+    vectors not wholly inside are read byte by byte)."""
+    win = _kernel_trees_window(8 << 20, tree_bytes=2 << 20)
+    n = len(win)
+    nb = PM.bucket_size(n) + 4096
+    buf = torch.zeros(nb + offset, dtype=torch.uint8, device=cuda)
+    buf[offset:offset + n] = torch.from_numpy(win).to(cuda)
+    buf[offset + n:] = 101      # padding that would make anchors
+    data = buf[offset:]
+    got = GS.read_anchors(*GS.gear_anchors(data, n, XC._GEAR, 10))
+    want = gear_host_pair(win, 10)
+    assert len(want[0]) > 1000
+    assert _same_anchors(got, want)
+
+
+@pytest.mark.parametrize("mode", ["unlimited", "cross_chunk"])
+def test_cross_window_scan_on_the_card(cuda, mode):
+    """-U and cross_chunk over ten windows of kernel trees, lzma: the
+    card's archive is the CPU's byte for byte, K11 scans every window
+    once on the card (``cross_scan_card`` 1; 0 on the CPU), and the
+    archive decodes."""
+    data = _kernel_trees_window(10 * 100_000 + 5_000).tobytes()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        stats = []
+        s = lrzt.Settings(method="lzma", max_chunk=100_000,
+                          stats_sink=stats.append, **{mode: True})
+        before = GS.launches
+        runs[dev] = (lrzt.compress(data, s, device=dev), stats,
+                     GS.launches - before)
+    (card, c_stats, c_k11), (cpu, h_stats, h_k11) = runs["cuda"], runs["cpu"]
+    assert card == cpu
+    assert len(c_stats) == 11 and c_k11 == 11 and h_k11 == 0
+    assert [s["cross_scan_card"] for s in c_stats] == [1] * 11
+    assert [s["cross_scan_card"] for s in h_stats] == [0] * 11
+    assert [s["cross_bytes"] for s in c_stats] == \
+        [s["cross_bytes"] for s in h_stats]
+    assert sum(s["cross_bytes"] for s in c_stats) > len(data) // 2
+    assert lrzt.decompress(card, device="cuda") == data
 
 
 def _mesh_archive(data: bytes, settings, mesh, monkeypatch) -> tuple:

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Host-clock seconds of the port's ``-U`` cross-window index on one
-64 MiB window, the stages that hold ``-U`` over several windows:
+64 MiB window, on its host path (without a card; on a card K11 gives
+each window's anchor set, timed by ``chip_smoke.py``'s ``check_k11``):
 
     python3 tools/torch_unlimited_index_profile.py [--mib 256]
 
