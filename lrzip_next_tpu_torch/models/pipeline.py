@@ -4,30 +4,37 @@ The port's own ``Settings`` (the same fields, defaults and ``resolved_*``
 methods as ``lrzip_next_tpu/models/pipeline.py``), chunk planning, and
 both directions of the single-device chunk loop.
 
-Compress: each chunk goes through the GPU matcher (``ops/matcher.py``:
-the anchor-seed pipeline, or with ``anchor_stride=1`` the dense one).
-Chunks k+1 and k+2 are queued on the device, each ``MatchJob`` on its
-own stream and worker thread, while chunk k is packaged and written (the
-JAX package's lookahead).  The archive hash runs over the whole input on
-a thread of its own (``utils/hashing.HashThread``) beside all of it.
-With ``method="rans"`` and no filter a chunk's literal stream is then
-rANS-encoded on the device from the chunk the matcher uploaded
-(``models/device_path.py``), and only the payload comes back.  Every
-other method compresses the literals on the host.  Chunks are planned
-with the 256 MiB device chunk cap (``use_tpu=True`` in the JAX
-package's terms), which makes the archives equal to that package's
-device path.  ``-U`` over several chunks
-(``_compress_unlimited``) matches each window on the device, two queued
-ahead, and writes one whole-file chunk whose literals take the host
-codecs.  ``device=None`` takes the host matcher instead, with the chunk
-plan of ``use_tpu=False``; ``encode_tokens=`` replaces the matcher.  With
-two cards or more and ``use_mesh=True``, or ``use_mesh`` left to choose
-on ``device="cuda"`` (no card named), batches of consecutive
-equal-size chunks run across the mesh's dp rows instead, a ``MatchJob`` a
-chunk on its row's first card and split over the row's sp cards, two
-batches queued ahead (``_compress_chunks_mesh``, ``parallel/mesh.py``);
-the archive is the same.  Below two cards ``use_mesh=True`` takes the lookahead, as the JAX
-package does below two devices.
+Compress: one loop in ``compress_stream`` takes each window (a chunk)
+from one source, ``_windows``, the only code that knows where a window's
+tokens come from.  Its three producers: the GPU matcher (``ops/
+matcher.py``: the anchor-seed pipeline, or with ``anchor_stride=1`` the
+dense one), a ``MatchJob`` a window, windows k+1 and k+2 queued on the
+device, each job on its own stream and worker thread, while window k is
+written (the JAX package's lookahead); with two cards or more and
+``use_mesh=True``, or ``use_mesh`` left to choose on ``device="cuda"``
+(no card named), batches of consecutive equal-size chunks across the
+mesh's dp rows instead, a ``MatchJob`` a chunk on its row's first card
+and split over the row's sp cards, two batches queued ahead
+(``parallel/mesh.py``; below two cards ``use_mesh=True`` takes the
+lookahead, as the JAX package does below two devices); and the host
+matcher (``device=None``, with the chunk plan of ``use_tpu=False``) or
+the ``encode_tokens=`` hook, with no job.  Chunks are planned with the
+256 MiB device chunk cap (``use_tpu=True`` in the JAX package's terms),
+which makes the archives equal to that package's device path.
+
+For each window the loop runs the cross-window step where an index runs
+(``-U`` and ``cross_chunk``: ``_cross_window``), hands the window to the
+writer chosen once, and hands its stats dict on.  ``ChunkWriter`` writes
+a chunk a window; with ``method="rans"`` and no filter a chunk's literal
+stream is rANS-encoded on the device from the chunk the matcher uploaded
+(``models/device_path.py``), and only the payload comes back, while
+every other method compresses the literals on the host.
+``_WholeFileWriter`` (``-U`` over several windows) collects the windows'
+tokens and literals and writes one whole-file chunk whose literals take
+the host codecs.  Both code their blocks on the pool.  The archive hash
+runs over the whole input on a thread of its own
+(``utils/hashing.HashThread``) beside all of it; the archives are the
+same whatever the source.
 
 Decompress: a chunk whose literal stream is one ``CTYPE_RANS`` block of
 an archive without a filter decodes its literals on the device
@@ -185,6 +192,17 @@ def _magic_for(settings: Settings, expected_size: int,
     return h
 
 
+def magic_header(settings: Settings, total: int,
+                 crypto=None) -> MagicHeader:
+    """The magic header of an archive of ``total`` input bytes, with
+    ``crypto``'s code and salt where the archive is encrypted."""
+    magic = _magic_for(settings, total, eof_known=True)
+    if crypto is not None:
+        magic.enc_code = crypto.enc_code
+        magic.salt = crypto.salt
+    return magic
+
+
 def _backend_cfg(settings: Settings) -> BackendConfig:
     zl, zs = settings.resolved_zstd()
     return BackendConfig(
@@ -230,6 +248,16 @@ def plan_chunks(total: int, settings: Settings,
         sizes.append(c)
         left -= c
     return sizes
+
+
+def chunk_bounds(total: int, settings: Settings) -> List[Tuple[int, int]]:
+    """``(offset, size)`` of each chunk that ``plan_chunks`` plans."""
+    bounds = []
+    pos = 0
+    for csize in plan_chunks(total, settings):
+        bounds.append((pos, csize))
+        pos += csize
+    return bounds
 
 
 def settings_from_reference(obj) -> Settings:
@@ -303,6 +331,11 @@ def compress_stream(data, out: BinaryIO, settings: Optional[Settings] = None,
     matcher, as the JAX package's hook does: its chunks are neither
     queued ahead nor matched as ``-U`` windows on the device.
 
+    One loop takes every window from ``_windows`` and hands it, after
+    the cross-window step where an index runs, to one of two writers
+    chosen once: ``ChunkWriter`` (a chunk a window) or, for ``-U`` over
+    several windows, ``_WholeFileWriter`` (one whole-file chunk).
+
     The archive hash (none with hash code 0) runs over the whole input
     on a thread of its own from the end of set-up; the calling thread
     waits for it after the last chunk (``compress.hash_wait``), and
@@ -325,25 +358,14 @@ def compress_stream(data, out: BinaryIO, settings: Optional[Settings] = None,
             data, (bytes, bytearray, memoryview)) else np.asarray(
                 data, dtype=np.uint8)
         total = len(data)
-        try:
-            ctype = ctype_for_method(settings.method)
-        except KeyError:
-            raise ValueError(
-                f"unknown compression method {settings.method!r}")
-        custom_tokens = encode_tokens is not None
-        bounds = []
-        pos = 0
-        for csize in plan_chunks(total, settings):
-            bounds.append((pos, csize))
-            pos += csize
-        unlimited = settings.unlimited and len(bounds) > 1 and \
-            not custom_tokens
-        queued = dev is not None and not custom_tokens
+        bounds = chunk_bounds(total, settings)
+        last = len(bounds) - 1
+        unlimited = settings.unlimited and last > 0 and encode_tokens is None
+        queued = dev is not None and encode_tokens is None
         mesh = None
-        if queued and not unlimited and len(bounds) > 1 \
+        if queued and not unlimited and last > 0 \
                 and (settings.use_mesh or settings.use_mesh is None):
             mesh = pmesh.pipeline_mesh(dev, settings.use_mesh)
-        stride = settings.resolved_anchor_stride()
 
         crypto = None
         if settings.passphrase is not None:
@@ -353,76 +375,38 @@ def compress_stream(data, out: BinaryIO, settings: Optional[Settings] = None,
                                          settings.enc_code or 1,
                                          costfactor_exp=exp)
 
-        magic = _magic_for(settings, total, eof_known=True)
-        if crypto is not None:
-            magic.enc_code = crypto.enc_code
-            magic.salt = crypto.salt
+        # -U and cross-chunk matching: a window's matches may reach into
+        # every earlier window, so the chunk byte width covers the file
+        xindex = width = None
+        if unlimited or (settings.cross_chunk and not settings.unlimited
+                         and last > 0):
+            xindex = CrossChunkIndex()
+            width = C.chunk_byte_width(total)
+            max_dist = (1 << (8 * width)) - 1
+        pool = ThreadPoolExecutor(max_workers=settings.resolved_threads())
+        writer = (_WholeFileWriter if unlimited else ChunkWriter)(
+            out, settings, pool, ops, crypto, width)
+        magic = magic_header(settings, total, crypto)
         out.write(magic.encode())
         written = magic.header_len
-
-        cfg = _backend_cfg(settings)
-
-        # cross-chunk matching: distances may reach into earlier chunks,
-        # so the chunk byte width covers the whole file
-        xindex = None
-        w_override = None
-        if settings.cross_chunk and not settings.unlimited and \
-                len(bounds) > 1:
-            xindex = CrossChunkIndex()
-            w_override = C.chunk_byte_width(total)
-        pool = ThreadPoolExecutor(max_workers=settings.resolved_threads())
+        windows = _windows(data, bounds, settings.resolved_anchor_stride(),
+                           dev, mesh, None if queued else
+                           encode_tokens or rzip_host.rzip_encode_chunk,
+                           ops.main)
         hashing = HashThread(ArchiveHash(magic.hash_code), data) \
             if magic.hash_code else None
-    main = ops.main
-
-    def finish_chunk(ci, chunk, tokens, job=None, stats=None):
-        """Write chunk ci; ``stats`` (default: ``job.stats``) goes to the
-        stats sink."""
-        nonlocal written
-        p0, csize = bounds[ci]
-        counts = {}
-        if xindex is not None:
-            tokens = _cross_window(data, xindex, p0, chunk, tokens,
-                                   (1 << (8 * w_override)) - 1, counts, main,
-                                   job.dev if job is not None else None)
-        written += _compress_chunk(
-            out, chunk, ci == len(bounds) - 1, ctype, cfg, settings, pool,
-            tokens, job, crypto, w_override, ops)
-        if stats is None:
-            stats = job.stats if job is not None else {"chunk_bytes": csize}
-        ops.chunk(dict(stats, chunk=ci, **counts),
-                  last=ci == len(bounds) - 1)
-        if settings.progress:
-            settings.progress("rzip", p0 + csize, total)
-
     try:
-        if unlimited:
-            written += _compress_unlimited(out, data, bounds, ctype, cfg,
-                                           settings, pool, crypto, dev, ops)
-        elif mesh is not None:
-            _compress_chunks_mesh(mesh, data, bounds, settings, finish_chunk,
-                                  main)
-        elif queued:
-            # the lookahead: chunks k+1 and k+2 are queued on the device
-            # (each job on its own stream and worker thread) while chunk
-            # k is packaged and written
-            def queue(ci):
-                p0, csize = bounds[ci]
-                with stage("compress.queue", main):
-                    return MatchJob(np.asarray(data[p0:p0 + csize]), stride,
-                                    dev)
-
-            for ci, job in _two_ahead(len(bounds), queue):
-                with stage("compress.match_wait", main):
-                    tokens = job.collect()
-                finish_chunk(ci, job.data, tokens, job)
-        else:
-            encode = encode_tokens or rzip_host.rzip_encode_chunk
-            for ci, (p0, csize) in enumerate(bounds):
-                with stage("compress.host_match", main):
-                    chunk = np.asarray(data[p0:p0 + csize])
-                    tokens = encode(chunk)
-                finish_chunk(ci, chunk, tokens)
+        for ci, p0, chunk, tokens, job, stats in windows:
+            counts = {}
+            if xindex is not None:
+                tokens = _cross_window(data, xindex, p0, chunk, tokens,
+                                       max_dist, counts, ops.main,
+                                       job.dev if job is not None else None)
+            writer.add(chunk, tokens, job, ci == last)
+            ops.chunk(dict(stats, chunk=ci, **counts), last=ci == last)
+            if settings.progress:
+                settings.progress("rzip", p0 + len(chunk), total)
+        written += writer.close()
         with stage("compress.hash_wait", ops.op_ms):
             if hashing is not None:
                 hashing.wait()
@@ -442,39 +426,64 @@ def compress_stream(data, out: BinaryIO, settings: Optional[Settings] = None,
     return written
 
 
-def _compress_chunks_mesh(mesh, data: np.ndarray, bounds, settings: Settings,
-                          finish_chunk, main: Optional[dict] = None) -> None:
-    """The dp-sharded chunk loop (the JAX package's
-    ``_compress_chunks_mesh``): consecutive equal-size chunks form
-    batches of at most dp, each a ``parallel/mesh.MeshMatchBatch`` (chunk
-    j of a batch on dp row j, its matcher split over the row's sp
-    devices); two batches are queued ahead while the chunks of the
-    current one are collected and written in order, each with its
-    batch's job for the device literal encode.  ``main`` takes the
-    stage milliseconds of the queue and the waits."""
-    dp = mesh.devices.shape[0]
-    stride = settings.resolved_anchor_stride()
-    groups: List[List[int]] = []
-    cur: List[int] = []
-    for ci, (_, csize) in enumerate(bounds):
-        if cur and (len(cur) == dp or bounds[cur[0]][1] != csize):
-            groups.append(cur)
-            cur = []
-        cur.append(ci)
-    groups.append(cur)
+def _windows(data: np.ndarray, bounds, stride: int, dev, mesh, encode,
+             main: Optional[dict]):
+    """The window source: ``(index, offset, chunk, tokens, job or None,
+    stats)`` of each window in order, from one of three producers.
 
-    def dispatch(gi):
-        with stage("compress.queue", main):
-            return pmesh.MeshMatchBatch(
-                mesh, [data[bounds[ci][0]:bounds[ci][0] + bounds[ci][1]]
-                       for ci in groups[gi]], stride)
+    - ``mesh``: batches of consecutive equal-size chunks, at most dp a
+      batch, each a ``parallel/mesh.MeshMatchBatch`` (chunk j of a batch
+      on dp row j, its matcher split over the row's sp devices), two
+      batches queued ahead (the JAX package's ``_compress_chunks_mesh``);
+      the stats are the batch's, and the job is the chunk's on its row.
+    - ``encode`` None: a ``MatchJob`` a window on ``dev``, two queued
+      ahead, each on its own stream and worker thread (the lookahead).
+    - else ``encode(chunk)``, the host matcher or the ``encode_tokens``
+      hook, with no job.
 
-    for gi, batch in _two_ahead(len(groups), dispatch):
-        for j, ci in enumerate(groups[gi]):
+    ``main`` takes the stages of the queueing (``compress.queue``), the
+    waits (``compress.match_wait``) and the host matching
+    (``compress.host_match``)."""
+
+    def window(ci):
+        p0, csize = bounds[ci]
+        return np.asarray(data[p0:p0 + csize])
+
+    if mesh is not None:
+        groups: List[List[int]] = []
+        for ci, (_, csize) in enumerate(bounds):
+            if not groups or len(groups[-1]) == mesh.devices.shape[0] or \
+                    bounds[groups[-1][0]][1] != csize:
+                groups.append([])
+            groups[-1].append(ci)
+
+        def dispatch(gi):
+            with stage("compress.queue", main):
+                return pmesh.MeshMatchBatch(
+                    mesh, [window(ci) for ci in groups[gi]], stride)
+
+        for gi, batch in _two_ahead(len(groups), dispatch):
+            for j, ci in enumerate(groups[gi]):
+                with stage("compress.match_wait", main):
+                    tokens = batch.collect(j)
+                    job = batch.job_for(j)
+                yield ci, bounds[ci][0], job.data, tokens, job, \
+                    batch.stats[j]
+    elif encode is None:
+        def queue(ci):
+            with stage("compress.queue", main):
+                return MatchJob(window(ci), stride, dev)
+
+        for ci, job in _two_ahead(len(bounds), queue):
             with stage("compress.match_wait", main):
-                tokens = batch.collect(j)
-                job = batch.job_for(j)
-            finish_chunk(ci, job.data, tokens, job, batch.stats[j])
+                tokens = job.collect()
+            yield ci, bounds[ci][0], job.data, tokens, job, job.stats
+    else:
+        for ci, (p0, csize) in enumerate(bounds):
+            with stage("compress.host_match", main):
+                chunk = window(ci)
+                tokens = encode(chunk)
+            yield ci, p0, chunk, tokens, None, {"chunk_bytes": csize}
 
 
 def _cross_window(data: np.ndarray, xindex: CrossChunkIndex, p0: int,
@@ -501,195 +510,178 @@ def _cross_window(data: np.ndarray, xindex: CrossChunkIndex, p0: int,
     return tokens
 
 
-def _compress_unlimited(out: BinaryIO, data: np.ndarray, bounds, ctype: int,
-                        cfg: BackendConfig, settings: Settings,
-                        pool: ThreadPoolExecutor, crypto,
-                        dev: Optional[torch.device], ops: OpStats) -> int:
-    """-U over several windows: ONE rzip chunk spanning the whole file,
-    built from window passes (the memory-bounded analogue of the
-    reference's sliding mmap, src/rzip.c:84-181; the JAX package's
-    ``_compress_unlimited``).
+class ChunkWriter:
+    """A chunk a window, and what ``-U``'s writer shares with it.
 
-    Each window is matched against itself (a ``MatchJob`` on ``dev``,
-    two queued ahead, or the host matcher where ``dev`` is None) and
-    against every earlier window through the host cross-window index
-    (``models/crosschunk.py``); the spliced token streams concatenate
-    into one whole-file stream.  The literals go through the host codecs,
-    flushed to blocks as they accumulate.  ``ops`` takes a dict a window,
-    with the counters of its cross-window matches (``_cross_window``),
-    and the stages; the CRC runs on the calling thread
-    (``compress.crc``)."""
-    total = len(data)
-    w = C.chunk_byte_width(max(total, 1))
-    max_dist = (1 << (8 * w)) - 1
-    xindex = CrossChunkIndex()
-    gate = _lz4_gate(settings)
-    stride = settings.resolved_anchor_stride()
+    A writer takes each window's chunk, its tokens and its job or None
+    (``add``) in order, and ``close()`` returns the bytes it wrote.
+    Here each chunk's CRC runs on the pool (``compress.crc_wait``); with
+    the rans codec and no filter its literals are rANS-coded on the
+    device from the job's padded window (a trivial chunk never reached
+    the device and the host matcher has no job: both take the host
+    codec); its blocks are coded on the pool (``compress.backend_wait``)
+    and the chunk written (``compress.write``).  ``width`` fixes the
+    chunk byte width (the file's, where windows match across the file),
+    else each chunk has its own.  ``ops`` takes the stages and the
+    pool's ``backend_ms``."""
 
-    all_k: List[np.ndarray] = []
-    all_l: List[np.ndarray] = []
-    all_d: List[np.ndarray] = []
-    lit_parts: List[np.ndarray] = []
-    lit_len = 0
-    lit_futs: List = []
-    crc = 0
-    main = ops.main
-    times = ops.pool_times()
-    code = timed(_code_block, times)
+    def __init__(self, out: BinaryIO, settings: Settings,
+                 pool: ThreadPoolExecutor, ops: Optional[OpStats] = None,
+                 crypto=None, width: Optional[int] = None):
+        try:
+            self.ctype = ctype_for_method(settings.method)
+        except KeyError:
+            raise ValueError(
+                f"unknown compression method {settings.method!r}")
+        self.out, self.settings, self.pool = out, settings, pool
+        self.crypto, self.width = crypto, width
+        self.ops = ops or OpStats(None, "compress")
+        self.main = self.ops.main
+        self.cfg = _backend_cfg(settings)
+        self.gate = _lz4_gate(settings)
+        self.on_device = self.ctype == C.CTYPE_RANS and \
+            not settings.filter_flag
+        self.written = 0
 
-    def add_literals(arr: np.ndarray, final: bool = False):
-        nonlocal lit_len
-        if len(arr):
-            lit_parts.append(arr)
-            lit_len += len(arr)
-        while lit_len >= settings.block_size or (final and lit_len):
-            buf = np.concatenate(lit_parts) if len(lit_parts) > 1 \
-                else lit_parts[0]
-            raw = buf[:settings.block_size].tobytes()
-            if settings.filter_flag:
-                raw = apply_filter(raw, settings.filter_flag,
-                                   settings.delta_offset)
-            lit_futs.append(pool.submit(code, 1, raw, ctype, cfg, gate))
-            rest = buf[settings.block_size:]
-            lit_parts[:] = [rest] if len(rest) else []
-            lit_len = len(rest)
-
-    def make_job(ci):
-        p0, csize = bounds[ci]
-        with stage("compress.queue", main):
-            chunk = np.asarray(data[p0:p0 + csize])
-            return chunk, (MatchJob(chunk, stride, dev) if dev is not None
-                           else None)
-
-    for ci, (chunk, job) in _two_ahead(len(bounds), make_job):
-        p0, csize = bounds[ci]
-        if job is not None:
-            with stage("compress.match_wait", main):
-                tokens = job.collect()
-        else:
-            with stage("compress.host_match", main):
-                tokens = rzip_host.rzip_encode_chunk(chunk)
-        counts = {}
-        tokens = _cross_window(data, xindex, p0, chunk, tokens, max_dist,
-                               counts, main,
-                               job.dev if job is not None else None)
-        if job is not None:
-            job.dev = None      # the literals are coded on the host
-        with stage("compress.tokens", main):
-            k, ln, d = split_long_runs(*tokens)
-            all_k.append(k)
-            all_l.append(ln)
-            all_d.append(d)
-            add_literals(rzip_host.literals_of(chunk, k, ln))
-        with stage("compress.crc", main):
-            crc = zlib.crc32(chunk, crc)
-        ops.chunk(dict(job.stats if job is not None
-                       else {"chunk_bytes": csize}, chunk=ci, **counts),
-                  last=ci == len(bounds) - 1)
-        if settings.progress:
-            settings.progress("rzip", p0 + csize, total)
-    with stage("compress.tokens", main):
-        add_literals(np.zeros(0, np.uint8), final=True)
-        stream0 = encode_token_stream(np.concatenate(all_k),
-                                      np.concatenate(all_l),
-                                      np.concatenate(all_d), w,
-                                      stored_crc_int(crc & 0xFFFFFFFF))
-    with stage("compress.backend_wait", main):
-        blocks = list(pool.map(
-            lambda part: code(0, part.tobytes(), ctype, cfg, gate),
-            _split_stream(stream0, settings.block_size)))
-        blocks += [f.result() for f in lit_futs]
-    ops.count(times)
-    with stage("compress.write", main):
-        return write_chunk(out, w, True, total, blocks, crypto=crypto)
-
-
-def _device_literal_block(job: MatchJob, chunk: np.ndarray, kinds, lengths,
-                          settings: Settings) -> Optional[Block]:
-    """The chunk's literal block from the device rANS encode: rANS when
-    the payload is smaller than the literals, else the raw literals;
-    None when the chunk has no literals.  The encode runs with the job's
-    card as the current device: the kernels launch onto the current
-    stream of the tensors' card, which a mesh row's chunk may hold while
-    another card is current."""
-    with torch.cuda.device(job.device) if job.device.type == "cuda" \
-            else contextlib.nullcontext():
-        enc = DeviceLiteralEncode(
-            job.dev, kinds, lengths,
-            ctx_bits_for_level(settings.compression_level))
-        payload = enc.payload()
-    job.stats["literal_ms"] = enc.stage_ms
-    job.stats["literal_lanes"] = enc.lanes
-    if payload is None:
-        return None
-    if len(payload) < enc.n_lit:
-        block = Block(streamno=1, c_type=C.CTYPE_RANS, c_len=len(payload),
-                      u_len=enc.n_lit, payload=payload)
-    else:
-        raw = rzip_host.literals_of(chunk, kinds, lengths).tobytes()
-        block = Block(streamno=1, c_type=C.CTYPE_NONE, c_len=len(raw),
-                      u_len=len(raw), payload=raw)
-    job.stats["literal_coder"] = "rans" if block.c_type == C.CTYPE_RANS \
-        else "none"
-    return block
-
-
-def _compress_chunk(out: BinaryIO, chunk: np.ndarray, eof: bool, ctype: int,
-                    cfg, settings: Settings, pool: ThreadPoolExecutor,
-                    tokens, job: Optional[MatchJob] = None, crypto=None,
-                    w_override: Optional[int] = None,
-                    ops: Optional[OpStats] = None) -> int:
-    """One chunk's blocks, written to ``out``; ``ops`` takes the stages
-    and the pool's ``backend_ms``."""
-    main = ops.main if ops is not None else None
-    times = ops.pool_times() if ops is not None else None
-    with stage("compress.tokens", main):
-        csize = len(chunk)
-        w = w_override or C.chunk_byte_width(max(csize, 1))
-        crc_fut = pool.submit(lambda: zlib.crc32(chunk) & 0xFFFFFFFF)
-        kinds, lengths, dists = split_long_runs(*tokens)
-
-    # the device literal path: with the rans codec and no filter, the
-    # literals are encoded from the chunk the matcher uploaded; a trivial
-    # chunk never reached the device, and the host matcher has no job:
-    # both take the host codec
-    device_literals = ctype == C.CTYPE_RANS and not settings.filter_flag \
-        and job is not None and job.dev is not None
-    lit_block = None
-    if device_literals:
-        with stage("compress.literal_encode", main):
-            lit_block = _device_literal_block(job, chunk, kinds, lengths,
-                                              settings)
-    if job is not None:
-        job.dev = None      # the padded chunk is needed no further
-    with stage("compress.crc_wait", main):
-        crc = crc_fut.result()
-    with stage("compress.tokens", main):
-        stream0 = encode_token_stream(kinds, lengths, dists, w,
-                                      stored_crc_int(crc))
-        stream1 = np.zeros(0, np.uint8) if device_literals \
-            else rzip_host.literals_of(chunk, kinds, lengths)
-
-        gate = _lz4_gate(settings)
-        jobs = []
-        for streamno, stream in ((0, stream0), (1, stream1)):
-            for part in _split_stream(stream, settings.block_size):
-                raw = part.tobytes()
-                if streamno == 1 and settings.filter_flag:
-                    raw = apply_filter(raw, settings.filter_flag,
-                                       settings.delta_offset)
-                jobs.append((streamno, raw))
-
-    with stage("compress.backend_wait", main):
+    def add(self, chunk: np.ndarray, tokens, job: Optional[MatchJob] = None,
+            last: bool = True) -> None:
+        times = self.ops.pool_times()
         code = timed(_code_block, times)
-        blocks = list(pool.map(
-            lambda item: code(*item, ctype, cfg, gate), jobs))
-    if ops is not None:
-        ops.count(times)
-    if lit_block is not None:
-        blocks.append(lit_block)
-    with stage("compress.write", main):
-        return write_chunk(out, w, eof, csize, blocks, crypto=crypto)
+        with stage("compress.tokens", self.main):
+            w = self.width or C.chunk_byte_width(max(len(chunk), 1))
+            crc_fut = self.pool.submit(lambda: zlib.crc32(chunk) & 0xFFFFFFFF)
+            kinds, lengths, dists = split_long_runs(*tokens)
+        lit_block, lits = self._literals(job, chunk, kinds, lengths)
+        with stage("compress.crc_wait", self.main):
+            crc = crc_fut.result()
+        with stage("compress.tokens", self.main):
+            stream0 = encode_token_stream(kinds, lengths, dists, w,
+                                          stored_crc_int(crc))
+            futures = self._submit(0, stream0, code) + \
+                self._submit(1, lits, code)
+        with stage("compress.backend_wait", self.main):
+            blocks = [f.result() for f in futures]
+        self.ops.count(times)
+        if lit_block is not None:
+            blocks.append(lit_block)
+        with stage("compress.write", self.main):
+            self.written += write_chunk(self.out, w, last, len(chunk),
+                                        blocks, crypto=self.crypto)
+
+    def close(self) -> int:
+        return self.written
+
+    def _literals(self, job, chunk, kinds, lengths):
+        """``(literal block, no host literals)`` from the device rANS
+        encode (``compress.literal_encode``) where the writer codes there
+        and the job kept its padded window, else ``(None, the host
+        literals)``.  The device block is rANS where the payload is
+        smaller than the literals, else the raw literals; None where
+        there are none.  The encode runs with the job's card as the
+        current device: the kernels launch onto the current stream of
+        the tensors' card, which a mesh row's chunk may hold while
+        another card is current.  The job lets go of its padded window
+        here: no later step reads it."""
+        block, lits = None, np.zeros(0, np.uint8)
+        if self.on_device and job is not None and job.dev is not None:
+            with stage("compress.literal_encode", self.main), (
+                    torch.cuda.device(job.device) if job.device.type ==
+                    "cuda" else contextlib.nullcontext()):
+                enc = DeviceLiteralEncode(
+                    job.dev, kinds, lengths,
+                    ctx_bits_for_level(self.settings.compression_level))
+                payload = enc.payload()
+                job.stats["literal_ms"] = enc.stage_ms
+                job.stats["literal_lanes"] = enc.lanes
+                if payload is not None:
+                    rans = len(payload) < enc.n_lit
+                    if not rans:
+                        payload = rzip_host.literals_of(chunk, kinds,
+                                                        lengths).tobytes()
+                    block = Block(streamno=1, c_type=C.CTYPE_RANS if rans
+                                  else C.CTYPE_NONE, c_len=len(payload),
+                                  u_len=enc.n_lit, payload=payload)
+                    job.stats["literal_coder"] = "rans" if rans else "none"
+        else:
+            with stage("compress.tokens", self.main):
+                lits = rzip_host.literals_of(chunk, kinds, lengths)
+        if job is not None:
+            job.dev = None
+        return block, lits
+
+    def _submit(self, streamno: int, stream: np.ndarray, code) -> list:
+        """Futures of ``stream``'s blocks, each coded on the pool by
+        ``code``; stream 1 through the filter first."""
+        s = self.settings
+        futures = []
+        for part in _split_stream(stream, s.block_size):
+            raw = part.tobytes()
+            if streamno == 1 and s.filter_flag:
+                raw = apply_filter(raw, s.filter_flag, s.delta_offset)
+            futures.append(self.pool.submit(code, streamno, raw, self.ctype,
+                                            self.cfg, self.gate))
+        return futures
+
+
+class _WholeFileWriter(ChunkWriter):
+    """``-U`` over several windows: ONE rzip chunk spanning the whole
+    file, built from the window passes (the memory-bounded analogue of
+    the reference's sliding mmap, src/rzip.c:84-181; the JAX package's
+    ``_compress_unlimited``), at the file's chunk byte width.  The split
+    tokens are collected, the literals go through the host codecs in
+    blocks sent to the pool as they fill, the CRC runs on the calling
+    thread (``compress.crc``); ``close()`` codes the one token stream and
+    writes the chunk.  The pool's ``backend_ms`` lands in the last
+    window's dict."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.on_device = False
+        self.tokens: List[tuple] = []   # each window's split tokens
+        self.lits: List[np.ndarray] = []   # less than a block, in order
+        self.futures: list = []
+        self.crc = self.total = 0
+        self.times = self.ops.pool_times()
+        self.code = timed(_code_block, self.times)
+
+    def add(self, chunk: np.ndarray, tokens, job: Optional[MatchJob] = None,
+            last: bool = False) -> None:
+        with stage("compress.tokens", self.main):
+            kinds, lengths, dists = split_long_runs(*tokens)
+            self.tokens.append((kinds, lengths, dists))
+            self.total += len(chunk)
+        _, lits = self._literals(job, chunk, kinds, lengths)
+        with stage("compress.tokens", self.main):
+            self._flush(lits)
+        with stage("compress.crc", self.main):
+            self.crc = zlib.crc32(chunk, self.crc)
+
+    def _flush(self, lits: np.ndarray, final: bool = False) -> None:
+        """Add ``lits`` and send every whole block of the literals held
+        to the pool (with ``final``, the rest too)."""
+        if len(lits):
+            self.lits.append(lits)
+        held = sum(len(a) for a in self.lits)
+        if held >= self.settings.block_size or (final and held):
+            buf = np.concatenate(self.lits) if len(self.lits) > 1 \
+                else self.lits[0]
+            cut = held if final else held - held % self.settings.block_size
+            self.futures += self._submit(1, buf[:cut], self.code)
+            self.lits = [buf[cut:]] if cut < held else []
+
+    def close(self) -> int:
+        with stage("compress.tokens", self.main):
+            self._flush(np.zeros(0, np.uint8), final=True)
+            stream0 = encode_token_stream(
+                *map(np.concatenate, zip(*self.tokens)), self.width,
+                stored_crc_int(self.crc & 0xFFFFFFFF))
+            futures = self._submit(0, stream0, self.code) + self.futures
+        with stage("compress.backend_wait", self.main):
+            blocks = [f.result() for f in futures]
+        self.ops.count(self.times)
+        with stage("compress.write", self.main):
+            return write_chunk(self.out, self.width, True, self.total,
+                               blocks, crypto=self.crypto)
 
 
 def compress(data: bytes, settings: Optional[Settings] = None,

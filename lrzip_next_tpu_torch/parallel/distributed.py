@@ -30,7 +30,6 @@ from typing import List, Optional
 
 import numpy as np
 
-from ..backends import ctype_for_method
 from ..device import resolve_device
 from ..models import pipeline, rzip_host
 from ..ops.matcher import require_runtime, rzip_encode_chunk
@@ -139,9 +138,8 @@ def compress_chunk_blob(data: np.ndarray, eof: bool,
         rzip_encode_chunk(chunk, settings.resolved_anchor_stride(), dev)
     buf = io.BytesIO()
     with ThreadPoolExecutor(max_workers=settings.resolved_threads()) as pool:
-        pipeline._compress_chunk(
-            buf, chunk, eof, ctype_for_method(settings.method),
-            pipeline._backend_cfg(settings), settings, pool, tokens)
+        pipeline.ChunkWriter(buf, settings, pool).add(chunk, tokens,
+                                                      last=eof)
     return buf.getvalue()
 
 
@@ -168,11 +166,7 @@ def compress_distributed(data: np.ndarray, out,
         raise ValueError("compress_distributed writes no encrypted archive")
     data = np.asarray(data, dtype=np.uint8)
     total = len(data)
-    bounds = []
-    pos = 0
-    for s in pipeline.plan_chunks(total, settings):
-        bounds.append((pos, s))
-        pos += s
+    bounds = pipeline.chunk_bounds(total, settings)
     blobs = []
     for ci in chunk_assignment(len(bounds), n_hosts, host):
         p0, cs = bounds[ci]
@@ -190,7 +184,7 @@ def compress_distributed(data: np.ndarray, out,
             by_index[ci] = blob
     if sorted(by_index) != list(range(len(bounds))):
         raise RuntimeError("missing chunks in distributed gather")
-    magic = pipeline._magic_for(settings, total, eof_known=True)
+    magic = pipeline.magic_header(settings, total)
     out.write(magic.encode())
     written = magic.header_len
     for ci in range(len(bounds)):

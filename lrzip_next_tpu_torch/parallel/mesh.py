@@ -24,13 +24,14 @@ overflow redo.  The port's ``MatchJob`` reads its record count back and
 has no cap (ROADMAP "Cap hints and overflow redos are gone"), so a batch
 holds only real chunks and nothing is ever redone.
 
-Why a loop of its own (``models/pipeline._compress_chunks_mesh``) and
-not the lookahead with each job placed on the next card in turn: the
-lookahead keeps three jobs live in all, the mesh loop two batches ahead
-of the current one, so three jobs on every row of a mesh; and its stats
-are the JAX mesh path's (``chains`` counts coarse chain records), which
-the tests hold against that path batch by batch.  On one card (a test
-mesh) the two loops do the same work in another order.
+Why a producer of its own (the mesh branch of ``models/pipeline.
+_windows``) and not the lookahead with each job placed on the next card
+in turn: the lookahead keeps three jobs live in all, the mesh producer
+two batches ahead of the current one, so three jobs on every row of a
+mesh; and its stats are the JAX mesh path's (``chains`` counts coarse
+chain records), which the tests hold against that path batch by batch.
+On one card (a test mesh) the two producers do the same work in another
+order.
 
 ``shard_blocks`` and ``sharded_match_step`` are the JAX module's
 exports, kept as its counterparts and held against them by the tests:

@@ -218,3 +218,64 @@ def test_ranges_tile_the_calling_thread(data, method):
             assert a[1] <= b[0], (a, b)
         covered = sum(e - s for s, e, _, _ in mine)
         assert covered >= 0.9 * (e0 - s0)
+
+
+# every compress path: (settings, device, encode_tokens, use a test mesh,
+# its stage names; where a path queues no job, "compress.queue" would
+# time only a view of the window and is not asserted either way)
+_JOB = {"queue", "match_wait"}
+_CHUNKS = {"tokens", "crc_wait", "backend_wait", "write"}
+_WHOLE = {"tokens", "crc", "backend_wait", "write"}
+_CROSS = {"cross_find", "cross_index"}
+PATHS = {
+    "lookahead": ({}, "cpu", False, False, _JOB | _CHUNKS),
+    "mesh": ({"use_mesh": True}, "cpu", False, True, _JOB | _CHUNKS),
+    "host_matcher": ({}, None, False, False, {"host_match"} | _CHUNKS),
+    "hook": ({}, "cpu", True, False, {"host_match"} | _CHUNKS),
+    "unlimited_cpu": ({"unlimited": True}, "cpu", False, False,
+                      _JOB | _CROSS | _WHOLE),
+    "unlimited_host": ({"unlimited": True}, None, False, False,
+                       {"host_match"} | _CROSS | _WHOLE),
+    "cross_chunk": ({"cross_chunk": True}, "cpu", False, False,
+                    _JOB | _CROSS | _CHUNKS),
+}
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_every_compress_path_hands_on_a_dict_a_window(data, path,
+                                                      monkeypatch):
+    """Each compress path (the lookahead, the mesh, the host matcher, the
+    ``encode_tokens`` hook, ``-U`` with jobs and on the host, cross-chunk
+    matching) hands the sink one compress dict a window, in window
+    order, with that path's stage names; the operation's own stages
+    land in the last dict, and where a cross-window index runs every
+    dict carries its counters."""
+    from lrzip_next_tpu_torch.models import crosschunk, rzip_host
+    from lrzip_next_tpu_torch.parallel import mesh as pmesh
+    kw, device, hook, on_mesh, stages = PATHS[path]
+    if on_mesh:
+        cpu_mesh = pmesh.make_mesh(devices=["cpu"] * 2)
+        monkeypatch.setattr(pmesh, "pipeline_mesh", lambda *_: cpu_mesh)
+    batches = pmesh.batches
+    stats = []
+    settings = dataclasses.replace(_settings("gzip", stats.append), **kw)
+    out = io.BytesIO()
+    lrzt.compress_stream(data, out, settings, device=device,
+                         encode_tokens=rzip_host.rzip_encode_chunk
+                         if hook else None)
+    assert (pmesh.batches - batches > 0) == on_mesh
+    assert [s["chunk"] for s in stats] == [0, 1, 2]
+    assert [s["op"] for s in stats] == ["compress"] * 3
+    assert sum(s["chunk_bytes"] for s in stats) == len(data)
+    keys = set().union(*(s["main_ms"] for s in stats))
+    want = {"compress." + s for s in stages | {"setup", "hash", "hash_wait"}}
+    if "queue" in stages:
+        assert keys == want
+    else:
+        assert keys - {"compress.queue"} == want
+    for name in ("compress.setup", "compress.hash", "compress.hash_wait"):
+        assert [(name in s["main_ms"]) for s in stats] == \
+            [False, False, True]
+    cross = set(crosschunk.COUNTERS) | {"cross_scan_card"}
+    assert all((cross <= set(s)) == bool(_CROSS & stages) for s in stats)
+    assert lrzt.decompress(out.getvalue(), device=device) == data
