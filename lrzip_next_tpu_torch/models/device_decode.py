@@ -21,7 +21,6 @@ avoid.
 from __future__ import annotations
 
 import io
-import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
@@ -31,6 +30,7 @@ import torch
 from ..device import resolve_device
 from ..format.container import read_chunk_header
 from ..ops.matcher import require_runtime
+from ..utils.hashing import crc32_combine
 from .device_path import replay_tokens_device_array
 from .pipeline import Settings, _ChunkDecodeJob, check_chunk_crc, \
     parse_tokens, read_archive_head
@@ -92,7 +92,6 @@ def decompress_to_device(data, settings: Optional[Settings] = None,
     if verify:
         cum = 0
         for arr, sc in zip(chunks, stored_crcs):
-            b = arr.cpu().numpy().tobytes()
-            check_chunk_crc(b, sc, cum)
-            cum = zlib.crc32(b, cum)
+            b = arr.cpu().numpy()
+            cum = crc32_combine(cum, check_chunk_crc(b, sc, cum), len(b))
     return chunks

@@ -28,15 +28,17 @@ host path of a chunk whose tokens reach into earlier chunks).
 native runtime flattens the tokens into a piece plan on the host (a few
 records a token), and the ragged replay kernels of ``ops/replay_ragged``
 (K8a, K8c, and K8b for a layered plan) copy the pieces; the chunk is read
-back once.  Tokens that the runtime cannot flatten (byte-RLE chains) are
-resolved by pointer doubling in plain PyTorch (``ops/replay``), and so
-is every chunk where the native runtime is missing.
+back once, in slices that a sink (the decode's CRC and archive hash)
+takes as they land (``read_back``).  Tokens that the runtime cannot
+flatten (byte-RLE chains) are resolved by pointer doubling in plain
+PyTorch (``ops/replay``), and so is every chunk where the native runtime
+is missing.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -162,13 +164,16 @@ def _token_columns(kinds: np.ndarray, lengths: np.ndarray,
 
 def replay_device(kinds: np.ndarray, lengths: np.ndarray,
                   dists: np.ndarray, plane: DeviceLitPlane, device,
-                  main: Optional[dict] = None) -> Optional[bytes]:
+                  main: Optional[dict] = None,
+                  sink: Optional[Callable] = None) -> Optional[bytes]:
     """Token replay on ``device`` from the literal plane that lies there.
 
     Returns the chunk bytes, or None when the tokens reach back before
-    the chunk (cross-chunk history lives on the host side).  ``main``
-    takes the stage milliseconds (``decompress.flatten``,
-    ``decompress.replay_launch``, ``decompress.readback_wait``).
+    the chunk (cross-chunk history lives on the host side).  ``sink``,
+    where given, takes the chunk's bytes in order, a slice at a time as
+    the read-back lands (``read_back``).  ``main`` takes the stage
+    milliseconds (``decompress.flatten``, ``decompress.replay_launch``,
+    ``decompress.readback_wait``, and the sink's ``decompress.crc``).
     """
     with stage("decompress.flatten", main):
         lengths, d, is_match, lit_lens, reaches_back = _token_columns(
@@ -182,10 +187,53 @@ def replay_device(kinds: np.ndarray, lengths: np.ndarray,
         literals = plane.plane if plane.plane is not None \
             else torch.zeros(1, dtype=torch.uint8, device=device)
     res = _replay(kinds, lengths, d, is_match, lit_lens, literals, main)
+    return read_back(res, plane, sink, main)
+
+
+# The read-back's slice: each lands in pinned host memory and goes on to
+# the sink as soon as its copy is done.
+READBACK_SLICE = 32 << 20
+
+
+def read_back(res: torch.Tensor, plane: DeviceLitPlane,
+              sink: Optional[Callable] = None,
+              main: Optional[dict] = None) -> bytes:
+    """The bytes of the replayed chunk ``res`` after ``plane.check()``.
+
+    On CUDA the chunk comes back into one pinned buffer (PyTorch's
+    caching host allocator keeps it for the next chunk of its size) in
+    ``READBACK_SLICE`` slices, copied on a stream of their own after the
+    replay's last kernel; each slice goes to ``sink`` as soon as its copy
+    is done, and one host copy makes the bytes.  On the CPU the slices
+    are views of ``res``.  The slices' waits, the check and the copy are
+    ``decompress.readback_wait``, the sink's calls ``decompress.crc``."""
+    n = int(res.shape[0])
+    events = []
     with stage("decompress.readback_wait", main):
-        res = res.cpu().numpy()
+        if res.device.type == "cuda":
+            host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+            copy = torch.cuda.Stream(res.device)
+            copy.wait_stream(torch.cuda.current_stream(res.device))
+            res.record_stream(copy)
+            with torch.cuda.stream(copy):
+                for a in range(0, n, READBACK_SLICE):
+                    host[a:a + READBACK_SLICE].copy_(
+                        res[a:a + READBACK_SLICE], non_blocking=True)
+                    events.append(torch.cuda.Event())
+                    events[-1].record(copy)
+        else:
+            host = res
+        view = host.numpy()
+    for i, a in enumerate(range(0, n, READBACK_SLICE)):
+        if events:
+            with stage("decompress.readback_wait", main):
+                events[i].synchronize()
+        if sink is not None:
+            with stage("decompress.crc", main):
+                sink(view[a:a + READBACK_SLICE])
+    with stage("decompress.readback_wait", main):
         plane.check()
-        return res.tobytes()
+        return view.tobytes()
 
 
 def replay_tokens_device_array(kinds: np.ndarray, lengths: np.ndarray,

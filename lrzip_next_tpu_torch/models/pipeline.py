@@ -45,9 +45,13 @@ a chunk whose tokens reach into earlier chunks, and every chunk whose
 literals were decoded on the host, replays on the host
 (``runtime.replay_tokens``), where the history lies.  ``device=None``
 decodes every chunk on the host.  Chunk k+1's payload IO and backend
-decode run in the pool while chunk k replays.  Where the native host
-runtime is missing, the token parse, the replay and the matcher's host
-steps take their numpy counterparts, as the JAX package's do.
+decode run in the pool while chunk k replays.  Each chunk's bytes go,
+as they land (the device read-back in slices), to its CRC, one pass on
+the calling thread, and to the archive hash on a thread of its own
+(``_ChunkVerify``), which runs on beside the next chunk's decode.
+Where the native host runtime is missing, the token parse, the replay
+and the matcher's host steps take their numpy counterparts, as the JAX
+package's do.
 """
 
 from __future__ import annotations
@@ -77,7 +81,8 @@ from ..format.tokens import decode_token_stream, encode_token_stream, \
 from ..ops.filters import apply_filter, undo_filter
 from ..ops.matcher import MatchJob, default_anchor_stride, require_runtime
 from ..parallel import mesh as pmesh
-from ..utils.hashing import ArchiveHash, HashThread, stored_crc_int
+from ..utils.hashing import ArchiveHash, HashThread, crc32_combine, \
+    stored_crc_int
 from ..utils.memplan import default_max_chunk
 from ..utils.spans import OpStats, stage, timed
 from . import rzip_host
@@ -422,7 +427,8 @@ def compress_stream(data, out: BinaryIO, settings: Optional[Settings] = None,
                 digest = crypto.encrypt_block(digest, crypto.salt_pass)
             out.write(digest)
             written += len(digest)
-    ops.close(hash_ms=hashing.busy_ms if hashing is not None else 0.0)
+    ops.counters["hash_ms"] = hashing.busy_ms if hashing is not None else 0.0
+    ops.close()
     return written
 
 
@@ -783,10 +789,13 @@ def read_archive_head(fd: BinaryIO, settings: Settings):
 
 
 def check_chunk_crc(chunk_bytes: bytes, stored_crc: int,
-                    cumulative_crc: int) -> None:
+                    cumulative_crc: int, crc: Optional[int] = None) -> int:
     """Raise ``ValueError`` unless the chunk matches its stored CRC under
     one of the two readings: the chunk's own CRC (this writer's), or the
-    CRC of the whole output so far.
+    CRC of the whole output so far.  Returns the chunk's own CRC:
+    ``crc`` where the caller has computed it, else one pass here.  The
+    second reading combines it with ``cumulative_crc``
+    (``crc32_combine``), so neither takes another pass.
 
     The reference never resets its gcry CRC handle between chunks
     (src/rzip.c:943-950 opens it once per file), so reference multi-chunk
@@ -794,14 +803,52 @@ def check_chunk_crc(chunk_bytes: bytes, stored_crc: int,
     chunk 0 (``cumulative_crc`` is 0 there); for later chunks a corrupt
     chunk passing the other reading by chance is a 2^-32 event, the same
     strength as a single CRC32."""
-    crc = zlib.crc32(chunk_bytes) & 0xFFFFFFFF
+    if crc is None:
+        crc = zlib.crc32(chunk_bytes)
+    crc &= 0xFFFFFFFF
     if stored_crc == stored_crc_int(crc):
-        return
+        return crc
     if cumulative_crc != 0:
-        cum = zlib.crc32(chunk_bytes, cumulative_crc) & 0xFFFFFFFF
+        cum = crc32_combine(cumulative_crc, crc, len(chunk_bytes))
         if stored_crc == stored_crc_int(cum):
-            return
+            return crc
     raise ValueError(f"chunk CRC mismatch: stored 0x{stored_crc:08x}")
+
+
+class _ChunkVerify:
+    """The verify tail of one decompress: each chunk's CRC, one pass on
+    the calling thread, and the archive hash on a thread of its own
+    (``HashThread``; none with hash code 0), both fed the chunk's bytes
+    in order as they land (``add``).  ``begin`` starts a chunk; the hash
+    may still hold the chunk before it, but no older one, so what the
+    thread holds stays within two chunks."""
+
+    def __init__(self, hash_code: int):
+        self.hashing = HashThread(ArchiveHash(hash_code)) \
+            if hash_code else None
+        self.crc = 0
+        # parts handed to the hash in all, and before this chunk began
+        self._put = self._held = 0
+
+    def begin(self, main: Optional[dict]) -> None:
+        self.crc = 0
+        older, self._held = self._held, self._put
+        if older:
+            with stage("decompress.hash_wait", main):
+                self.hashing.wait_for(older)
+
+    def add(self, part) -> None:
+        if self.hashing is not None:
+            self._put = self.hashing.put(part)
+        self.crc = zlib.crc32(part, self.crc)
+
+    def wait(self) -> None:
+        if self.hashing is not None:
+            self.hashing.wait()
+
+    def stop(self) -> None:
+        if self.hashing is not None:
+            self.hashing.stop()
 
 
 def parse_tokens(stream0: bytes, chunk_bytes: int):
@@ -817,20 +864,23 @@ def parse_tokens(stream0: bytes, chunk_bytes: int):
 
 
 def _finish_chunk_decode(job: _ChunkDecodeJob, history: np.ndarray,
-                         cumulative_crc: int,
-                         main: Optional[dict] = None) -> bytes:
-    """Token parse, replay and the chunk CRC check; returns the chunk.
-    ``main`` takes the stage milliseconds."""
+                         cumulative_crc: int, verify: _ChunkVerify,
+                         main: Optional[dict] = None) -> Tuple[bytes, int]:
+    """Token parse, replay and the chunk CRC check; returns the chunk and
+    its own CRC.  ``verify`` takes the chunk's bytes as they land: the
+    slices of the device read-back, or the whole chunk of the host
+    replay.  ``main`` takes the stage milliseconds."""
     with stage("decompress.backend_wait", main):
         stream0, stream1 = job.streams()
     with stage("decompress.parse", main):
         kinds, lengths, dists, stored_crc = parse_tokens(
             stream0, job.hdr.chunk_bytes)
+    verify.begin(main)
     chunk_bytes = None
     if job.device_plane is not None:
         plane = job.device_plane
         chunk_bytes = replay_device(kinds, lengths, dists, plane,
-                                    job.device, main)
+                                    job.device, main, verify.add)
         if chunk_bytes is None:
             # cross-chunk reach: history lives host-side; read the
             # literal plane back and continue on the host path
@@ -857,10 +907,16 @@ def _finish_chunk_decode(job: _ChunkDecodeJob, history: np.ndarray,
                 chunk = replay_tokens(
                     kinds, lengths, dists, literals,
                     history=history if len(history) else None)
+        # the hash starts on the replayed chunk, beside its CRC and the
+        # copy that makes its bytes
+        with stage("decompress.crc", main):
+            verify.add(chunk)
+        with stage("decompress.host_replay", main):
             chunk_bytes = chunk.tobytes()
     with stage("decompress.crc", main):
-        check_chunk_crc(chunk_bytes, stored_crc, cumulative_crc)
-    return chunk_bytes
+        crc = check_chunk_crc(chunk_bytes, stored_crc, cumulative_crc,
+                              verify.crc)
+    return chunk_bytes, crc
 
 
 def iter_decompress(fd: BinaryIO, settings: Optional[Settings] = None,
@@ -877,11 +933,16 @@ def iter_decompress(fd: BinaryIO, settings: Optional[Settings] = None,
     the output file).  Without it, history for cross-chunk matches is
     accumulated in RAM.
 
+    Each chunk's CRC (one pass) and the archive hash (on a thread of its
+    own) take its bytes as they land; a chunk is yielded once its CRC
+    holds, and after the last the calling thread waits for the hash
+    (``decompress.hash_wait``) and compares it (``decompress.hash``).
+
     ``settings.stats_sink`` takes a dict a chunk: ``op``
     ("decompress"), ``chunk``, ``chunk_bytes``, ``main_ms`` (the calling
     thread's stages, ``utils/spans.py``) and the pool's ``backend_ms``;
-    the last chunk's dict, with the operation's own stages, when the
-    operation ends.
+    the last chunk's dict, with the operation's own stages and the hash
+    thread's ``hash_ms``, when the operation ends.
     """
     ops = _decode_stats(settings)
     yield from _decode_chunks(fd, settings, history_source, device, ops)
@@ -901,8 +962,8 @@ def _decode_chunks(fd: BinaryIO, settings: Optional[Settings],
         dev = None if device is None else resolve_device(device)
         settings = settings or Settings()
         magic, crypto, cfg = read_archive_head(fd, settings)
-        hasher = ArchiveHash(magic.hash_code) if magic.hash_code else None
         pool = ThreadPoolExecutor(max_workers=settings.resolved_threads())
+        verify = _ChunkVerify(magic.hash_code)
     main = ops.main
     out_total = 0
     cumulative_crc = 0
@@ -920,16 +981,14 @@ def _decode_chunks(fd: BinaryIO, settings: Optional[Settings],
             # against resize); file path: zero-copy memmap
             hist_arr = history_source() if history_source is not None \
                 else np.frombuffer(bytes(history), dtype=np.uint8)
-        chunk_bytes = _finish_chunk_decode(job, hist_arr, cumulative_crc,
-                                           main)
+        chunk_bytes, crc = _finish_chunk_decode(job, hist_arr,
+                                                cumulative_crc, verify, main)
         with stage("decompress.history", main):
             if not job.hdr.eof and history_source is None:
                 history += chunk_bytes
         with stage("decompress.crc", main):
-            cumulative_crc = zlib.crc32(chunk_bytes, cumulative_crc)
-        with stage("decompress.hash", main):
-            if hasher is not None:
-                hasher.update(chunk_bytes)
+            cumulative_crc = crc32_combine(cumulative_crc, crc,
+                                           len(chunk_bytes))
         ops.count(job.times)
         ops.chunk({"chunk": n_done, "chunk_bytes": len(chunk_bytes)}, last)
         n_done += 1
@@ -938,7 +997,8 @@ def _decode_chunks(fd: BinaryIO, settings: Optional[Settings],
 
     # one-chunk lookahead: chunk k+1's payload IO, literal decode and
     # backend decode run while chunk k replays (reference P3 read-ahead
-    # parity at chunk granularity, src/stream.c:2022-2195)
+    # parity at chunk granularity, src/stream.c:2022-2195); chunk k's
+    # hash runs on beside both
     prev = None
     n_done = 0
     try:
@@ -958,15 +1018,20 @@ def _decode_chunks(fd: BinaryIO, settings: Optional[Settings],
                 break
         if prev is not None:
             yield finish(prev, last=True)
+        with stage("decompress.hash_wait", ops.op_ms):
+            verify.wait()
     finally:
         with stage("decompress.setup", ops.op_ms):
+            verify.stop()
             pool.shutdown()
     with stage("decompress.hash", ops.op_ms):
         if magic.eof_known and magic.expected_size and \
                 out_total != magic.expected_size:
             raise ValueError(f"decompressed size {out_total} != expected "
                              f"{magic.expected_size}")
-        if hasher is not None:
+        hashing = verify.hashing
+        if hashing is not None:
+            hasher = hashing.hasher
             stored = fd.read(hasher.digest_size)
             if len(stored) != hasher.digest_size:
                 # a short tail means corruption consumed the stored hash -
@@ -978,6 +1043,7 @@ def _decode_chunks(fd: BinaryIO, settings: Optional[Settings],
                 stored = crypto.decrypt_block(stored, crypto.salt_pass)
             if stored != hasher.digest():
                 raise ValueError(f"{hasher.name} mismatch: archive corrupt")
+    ops.counters["hash_ms"] = hashing.busy_ms if hashing is not None else 0.0
 
 
 def decompress_stream(fd: BinaryIO, settings: Optional[Settings] = None,

@@ -87,9 +87,9 @@ class OpStats:
     the stages as ``main_ms``.  ``op_ms`` gathers the operation's own
     stages (set-up, the final digest, the join): the last chunk's dict
     (``last=True``) waits for them, and for the operation's own counters
-    (``close(hash_ms=...)``), until ``close()``, so the ``main_ms``
-    values of an operation sum to its calling thread's time in its
-    stages.  Without a sink ``main``, ``op_ms`` and ``pool_times()`` are
+    (``counters``, such as the hash thread's ``hash_ms``), until
+    ``close()``, so the ``main_ms`` values of an operation sum to its
+    calling thread's time in its stages.  Without a sink ``main``, ``op_ms`` and ``pool_times()`` are
     None and nothing is kept."""
 
     def __init__(self, sink, op: str):
@@ -98,6 +98,7 @@ class OpStats:
         self.op_ms = {} if sink is not None else None
         self._backend_ms = 0.0
         self._last = None
+        self.counters = {}
 
     def pool_times(self):
         """A list for ``timed``, or None without a sink."""
@@ -120,10 +121,10 @@ class OpStats:
         else:
             self.sink(stats)
 
-    def close(self, **counters) -> None:
+    def close(self) -> None:
         if self._last is None:
             return
-        self._last.update(counters)
+        self._last.update(self.counters)
         self._last["backend_ms"] += self._backend_ms
         ms = self._last["main_ms"]
         for acc in (self.main, self.op_ms):

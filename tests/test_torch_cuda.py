@@ -2162,3 +2162,83 @@ def test_mesh_across_two_cards_launches_each_row_on_its_card(cuda,
     assert archive == lrzt.compress(data, lrzt.Settings(
         method="rans", max_chunk=1 << 20, use_mesh=False), device="cpu")
     assert lrzt.decompress(archive, device="cuda") == data
+
+
+# --- the decode's sliced read-back -------------------------------------------
+
+# 0 bytes, one slice, a size that is no multiple of the slice, and
+# Silesia's largest file (mozilla, 51,220,480 bytes)
+READBACK_SIZES = [0, DP.READBACK_SLICE, 2 * DP.READBACK_SLICE + 12_345,
+                  51_220_480]
+
+
+class _CheckedPlane:
+    """A literal plane whose final-state check passes."""
+
+    def check(self):
+        pass
+
+
+def _skewed(n: int, seed: int) -> bytes:
+    """Zipf-like bytes, so that rANS codes a chunk's literals smaller and
+    the chunk takes the device literal decode and replay."""
+    p = 1.0 / np.arange(1, 257) ** 1.2
+    body = np.random.default_rng(seed).choice(256, n // 2 + 1, p=p / p.sum())
+    body = body.astype(np.uint8)
+    return np.concatenate([body, body[:n - len(body)]])[:n].tobytes()
+
+
+@pytest.mark.parametrize("n", READBACK_SIZES)
+def test_sliced_read_back_equals_the_whole_chunk(cuda, n):
+    """The chunk read back in ``READBACK_SLICE`` slices through the pinned
+    buffer: the bytes, the slices in order and their MD5 equal the whole
+    chunk's read-back."""
+    import hashlib
+    res = torch.from_numpy(_repeating(n, n + 5)).to(cuda)
+    whole = res.cpu().numpy().tobytes()
+    parts = []
+    assert DP.read_back(res, _CheckedPlane(), parts.append) == whole
+    s = DP.READBACK_SLICE
+    assert [len(p) for p in parts] == [min(s, n - a)
+                                       for a in range(0, n, s)]
+    h = hashlib.md5()
+    for p in parts:
+        h.update(p)
+    assert h.digest() == hashlib.md5(whole).digest()
+    assert b"".join(p.tobytes() for p in parts) == whole
+
+
+@pytest.mark.parametrize("n", READBACK_SIZES)
+def test_decode_through_the_sliced_read_back(cuda, n, monkeypatch):
+    """A rans archive decoded on the card: the chunk is replayed there and
+    its slices feed the CRC and the MD5, which the decode checks; the
+    bytes equal those of a read-back in one piece.  A 0-byte chunk
+    replays nothing and reads nothing back."""
+    data = _skewed(n, n + 6)
+    archive = lrzt.compress(data, lrzt.Settings(method="rans"),
+                            device="cuda")
+    calls = []
+    read_back = DP.read_back
+
+    def counted(res, plane, sink=None, main=None):
+        calls.append(int(res.shape[0]))
+        return read_back(res, plane, sink, main)
+
+    monkeypatch.setattr(DP, "read_back", counted)
+    assert lrzt.decompress(archive, device="cuda") == data
+    assert calls == ([n] if n else [])
+    monkeypatch.setattr(DP, "READBACK_SLICE", max(n, 1))
+    assert lrzt.decompress(archive, device="cuda") == data
+
+
+def test_read_back_takes_no_new_pinned_buffer(cuda):
+    """Repeated decompresses of one archive read back through the pinned
+    blocks the first one took: the host allocator creates none after."""
+    data = _skewed(24 << 20, 7)
+    archive = lrzt.compress(data, lrzt.Settings(method="rans"),
+                            device="cuda")
+    assert lrzt.decompress(archive, device="cuda") == data
+    before = torch.cuda.host_memory_stats()["num_host_alloc"]
+    for _ in range(4):
+        assert lrzt.decompress(archive, device="cuda") == data
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == before

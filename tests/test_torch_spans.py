@@ -24,7 +24,8 @@ COMPRESS_STAGES = {"compress." + s for s in (
     "hash_wait")}
 DECOMPRESS_STAGES = {"decompress." + s for s in (
     "setup", "read", "backend_wait", "parse", "flatten", "replay_launch",
-    "readback_wait", "host_replay", "crc", "history", "hash", "join")}
+    "readback_wait", "host_replay", "crc", "history", "hash", "hash_wait",
+    "join")}
 DEVICE_KEYS = ("device_ms", "host_ms", "literal_ms", "fill_ms")
 
 
